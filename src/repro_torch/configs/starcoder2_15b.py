@@ -1,0 +1,16 @@
+"""starcoder2-15b — dense GQA + RoPE [arXiv:2402.19173]."""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-15b",
+    family="dense",
+    num_layers=40,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=4,
+    d_ff=24576,
+    vocab_size=49152,
+    head_dim=128,
+    num_exits=4,
+    source="arXiv:2402.19173; hf",
+)
