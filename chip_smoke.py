@@ -13,17 +13,30 @@ order; any failure exits non-zero:
 2. build: the port's CUDA kernels, compiled by ``nvcc`` from
    ``src/repro_torch/kernels/csrc`` into ``build/``;
 3. kernel checks: each kernel against its plain PyTorch version on the card
-   at the main path's full-width shapes, in bfloat16 and float32, with the
-   edge cases (a ragged prefill tile, a zero-length decode row, vocab ties);
-   then each kernel timed with CUDA events beside its plain version, one
-   library call for the same function and its bound on the card;
-4. serve: full-width llama3.2-1b in bfloat16 through ``ServingEngine.serve``
+   at the main paths' full-width shapes, in bfloat16 and float32, with the
+   edge cases (a ragged prefill tile, a zero-length decode row, vocab ties;
+   for the SSM scan both modes, rwkv6-3b's prefill and decode shapes from a
+   non-zero state, zamba2-2.7b's Mamba-2 shapes read through stride-0
+   broadcasts, and log_w = -8 everywhere); then each kernel timed with CUDA
+   events beside its plain version, one library call for the same function
+   where there is one, and its bound on the card;
+4. serve llama3.2-1b: full width in bfloat16 through ``ServingEngine.serve``
    (Edgent plan, prefill, right-sized decode, exit-head token) with every
-   launch counter at zero before and above zero after;
-5. kernel path against plain path: the same parameters in float32, served
-   once through the kernels and once through the dense attention and the
-   plain exit head, for a 12-token batch at the full exit and for phase 4's
-   1000-token batch, which deadline demotion decodes at earlier exits.
+   launch counter at zero before and its kernels' above zero after;
+5. kernel path against plain path for llama3.2-1b: the same parameters in
+   float32, served once through the kernels and once through the dense
+   attention and the plain exit head, for a 12-token batch at the full exit
+   and for phase 4's 1000-token batch, which deadline demotion decodes at
+   earlier exits;
+6. serve rwkv6-3b: full width and depth in bfloat16, every layer's scan
+   through the SSM scan kernel and every token through the exit head, the
+   counters as in phase 4;
+7. kernel path against plain path for rwkv6-3b, as phase 5 (the plain
+   path is the reference's scan dispatch and the plain exit head), held
+   launch by launch: every scan launch and every token of the served float32
+   kernel path against the plain version on the same inputs.  The
+   end-to-end distances are logged beside those of the plain path from the
+   same path with a float64 scan (see END_TO_END).
 
 The line before the last is the JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
@@ -31,6 +44,7 @@ repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -44,10 +58,19 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-ARCH = "llama3.2-1b"
+LLAMA, RWKV = "llama3.2-1b", "rwkv6-3b"
 BATCH = 4
 NEW_TOKENS = 16
 SHORT_PROMPT, LONG_PROMPT = 12, 1000
+SHORT_SLO = 0.4
+# The long prompts' SLO: their 1000-token prefill nearly spends it in the
+# latency model's virtual time, so EDF serves them first and deadline
+# demotion decodes them at earlier exits (llama3.2-1b: exits 2-4; rwkv6-3b:
+# exits 2-3), and the right-sized model runs on the card beside the full one.
+LONG_SLO = {LLAMA: 0.031, RWKV: 0.068}
+# the kernels each served model's main path must launch
+PATH_KERNELS = {LLAMA: ("flash_attention", "decode_attention", "exit_confidence"),
+                RWKV: ("ssm_scan", "exit_confidence")}
 # stated tolerances:
 #  * attention: the kernel against its plain version computed in float32
 #    from the same inputs (widened, never rounded on the plain side), at
@@ -64,9 +87,32 @@ SHORT_PROMPT, LONG_PROMPT = 12, 1000
 ATTN_ATOL = 2e-5
 ATTN_RTOL = {"torch.float32": 0.0, "torch.bfloat16": 2.0 ** -7}
 CONF_TOL, ENT_RTOL, MARGIN_TOL = 1e-5, 1e-4, 1e-4
+#  * SSM scan: both sides compute in float32 from the same inputs (the plain
+#    version is given them widened), the kernel rounds once, at its bfloat16
+#    output; |kernel - plain| <= SCAN_ATOL + ATTN_RTOL[dtype] * |plain|, with
+#    SCAN_ATOL the reference's scan test tolerance; the final state is float32
+#    on both sides and held at SCAN_ATOL + |plain| * 2^-20 (a few float32
+#    roundings of the running sum).
+SCAN_ATOL = 3e-4
+STATE_RTOL = 2.0 ** -20
 # phase 5: float32 hidden states of the kernel path against the plain path,
 # after 16 layers whose attention sums in another order
 HIDDEN_TOL = 1e-4
+# phase 7 holds each scan launch of the served float32 kernel path against
+# the plain scan on the same inputs.  The model's decay is weak (w near
+# 0.9975), so a state sums up to 1000 outer products far larger than the
+# result: allowed is SCAN_ATOL + 2 n F32_UNIT sum|terms|, twice the forward
+# error bound of an n-term float32 accumulation (n = S + dk + 2 for o, S + 2
+# for the state), sum|terms| being the plain scan of the inputs' absolute
+# values.
+F32_UNIT = 2.0 ** -24
+# phase 7 holds rwkv6-3b's kernel path against the plain path launch by
+# launch, not end to end: with random weights its stack amplifies float32
+# rounding (a head whose scan output barely varies over its 64 channels is
+# divided by that spread in the group norm), so that the plain path itself
+# ends more than HIDDEN_TOL from the same path with a float64 scan.  Its
+# end-to-end distances are measured and logged (PERF.md, PR 12).
+END_TO_END = {LLAMA: True, RWKV: False}
 TIMED_RUNS, WARMUP_RUNS = 20, 3
 L2_FLUSH_BYTES = 256 * 2**20          # > the H100's 50 MB L2
 
@@ -122,6 +168,16 @@ def bound(nbytes, flops, dtype, cfgmod):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def distinct_bytes(t):
+    """Bytes of the distinct elements of ``t``: a stride-0 broadcast is one
+    read of its source."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
 # ---------------------------------------------------------------- phase 3
 def kernel_checks(torch, timer):
     import torch.nn.functional as F
@@ -133,7 +189,7 @@ def kernel_checks(torch, timer):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    cfg = get_config(ARCH)
+    cfg = get_config(LLAMA)
     H, KV, hd, D, V = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_model, cfg.padded_vocab
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
@@ -293,18 +349,101 @@ def kernel_checks(torch, timer):
                          dtype=str(dt))
                 log(f"time exit_confidence {t}")
                 record["exit_confidence"] = t
+    record["ssm_scan"] = scan_checks(torch, timer, randn)
     return record
 
 
-# ---------------------------------------------------------------- phases 4-5
-def serving_setup():
+def scan_checks(torch, timer, randn):
+    """The SSM scan kernel against its plain version, in both modes, at
+    rwkv6-3b's prefill (S 12, and S 1000, ragged against any power-of-two
+    tile) and decode (S 1, from a non-zero state) shapes and zamba2-2.7b's
+    Mamba-2 shapes, and at log_w = -8 everywhere; then timed at rwkv6-3b's
+    S 1000 prefill (the record), S 1 decode and the Mamba-2 shapes."""
+    import repro_torch.config as C
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.kernels.ssm_scan import ref as ss_ref
+    from repro_torch.models import mamba2 as M2
+
+    rc, zc = get_config(RWKV), get_config("zamba2-2.7b")
+    H, hd = rc.num_heads, rc.hd
+    Hm, N = M2.n_heads(zc), zc.ssm_state
+
+    def rwkv_inputs(dt, S, strong):
+        q, k, v = (randn(BATCH, S, H, hd, dtype=dt) for _ in range(3))
+        lw = torch.full((BATCH, S, H, hd), -8.0, device="cuda") if strong \
+            else -torch.exp(randn(BATCH, S, H, hd, scale=0.5))
+        return q, k, v, lw, randn(BATCH, H, hd, hd, scale=0.1), randn(H, hd, scale=0.1)
+
+    def mamba_inputs(dt, S, strong):
+        # as mamba2.block builds them: C and B broadcast over the heads, the
+        # per-head decay over the state channels (stride-0 views)
+        bc, cc = randn(BATCH, S, N, dtype=dt), randn(BATCH, S, N, dtype=dt)
+        lw = torch.full((BATCH, S, Hm), -8.0, device="cuda") if strong \
+            else -torch.exp(randn(BATCH, S, Hm, scale=0.5))
+        return (cc[:, :, None].expand(BATCH, S, Hm, N), bc[:, :, None].expand(BATCH, S, Hm, N),
+                randn(BATCH, S, Hm, M2.DH, dtype=dt), lw[..., None].expand(BATCH, S, Hm, N),
+                randn(BATCH, Hm, N, M2.DH, scale=0.1), None)
+
+    def bound_of(args, o, s_out, dt):
+        q, k, v, lw, s0, u = args
+        nbytes = sum(distinct_bytes(t) for t in (q, k, v, lw, s0, o, s_out)) \
+            + (0 if u is None else distinct_bytes(u))
+        B, S, Hh, dk = q.shape
+        flops = 6 * B * Hh * S * dk * v.shape[-1]       # decay, outer product, readout
+        return bound(nbytes, flops, dt, C)
+
+    out = None
+    for dt in (torch.bfloat16, torch.float32):
+        for label, make, S, strong in (("rwkv", rwkv_inputs, SHORT_PROMPT, False),
+                                       ("rwkv", rwkv_inputs, LONG_PROMPT, False),
+                                       ("rwkv", rwkv_inputs, 1, False),
+                                       ("mamba2", mamba_inputs, LONG_PROMPT, False),
+                                       ("rwkv", rwkv_inputs, LONG_PROMPT, True),
+                                       ("mamba2", mamba_inputs, LONG_PROMPT, True)):
+            args = make(dt, S, strong)
+            q, k, v, lw, s0, u = args
+            o, s_out = ss_ops.ssm_scan(*args)
+            torch.cuda.synchronize()
+            po, ps = ss_ref.ssm_scan(q.float(), k.float(), v.float(), lw, s0, u=u)
+            require(torch.isfinite(po).all().item() and torch.isfinite(ps).all().item(),
+                    f"ssm_scan plain version non-finite ({label} S{S} strong {strong})")
+            require(torch.isfinite(o.float()).all().item()
+                    and torch.isfinite(s_out).all().item(),
+                    f"ssm_scan {label} {dt} S{S}: non-finite kernel output")
+            diff = (o.float() - po).abs()
+            share = (diff / (SCAN_ATOL + ATTN_RTOL[str(dt)] * po.abs())).max().item()
+            sdiff = (s_out - ps).abs()
+            sshare = (sdiff / (SCAN_ATOL + STATE_RTOL * ps.abs())).max().item()
+            shape = (f"{label} B{q.shape[0]} S{S} H{q.shape[2]} dk{q.shape[3]} "
+                     f"dv{v.shape[-1]}" + (" log_w -8" if strong else ""))
+            e = diff.max().item()
+            log(f"check ssm_scan {dt} {shape}: o max_abs_err {e:.3g}, worst err/allowed "
+                f"{share:.3g} (allowed {SCAN_ATOL} + {ATTN_RTOL[str(dt)]:.4g} |plain f32|); "
+                f"state max_abs_err {sdiff.max().item():.3g}, worst {sshare:.3g}")
+            require(share <= 1.0 and sshare <= 1.0,
+                    f"ssm_scan {dt} {shape} disagrees: {share} / {sshare} of the allowed error")
+            if dt == torch.bfloat16 and not strong and S != SHORT_PROMPT:
+                t = dict(ms=timer.ms(lambda: ss_ops.ssm_scan(*args)),
+                         plain_ms=timer.ms(lambda: ss_ref.ssm_scan(*args)),
+                         library_ms=None)
+                t["bound_ms"], t["bound_by"] = bound_of(args, o, s_out, dt)
+                t.update(max_abs_err=e, err_share=share, shape=shape, dtype=str(dt))
+                log(f"time ssm_scan {t}")
+                if label == "rwkv" and S == LONG_PROMPT:
+                    out = t
+    return out
+
+
+# ---------------------------------------------------------------- phases 4-7
+def serving_setup(arch):
     from repro_torch.configs import get_config
     from repro_torch.core import EdgentPlanner, lm_graph
     from repro_torch.core.latency_model import RooflineLatencyModel
     from repro_torch.data.bandwidth import dcn_trace
     from repro_torch.serving.tiers import Link
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     graph = lm_graph(cfg, batch=BATCH, seq=1)
     planner = EdgentPlanner(graph, latency_req_s=0.4).with_models(
         RooflineLatencyModel(chips=8, efficiency=0.4),
@@ -319,27 +458,25 @@ def make_requests(Request, vocab, plan):
             for i, (n, slo) in enumerate(plan)]
 
 
-def serve_main_path(torch):
+def serve_main_path(torch, arch):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import Model
     from repro_torch.serving import Request, ServingEngine
 
-    cfg, graph, planner, link = serving_setup()
+    cfg, graph, planner, link = serving_setup(arch)
     model = Model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init_params(gen, dtype=torch.bfloat16, device="cuda")
     n_params = sum(p.numel() for p in _leaves(params))
-    log(f"serve: {cfg.name} layers {cfg.num_layers} d {cfg.d_model} heads "
+    log(f"serve: {cfg.name} ({cfg.family}) layers {cfg.num_layers} d {cfg.d_model} heads "
         f"{cfg.num_heads}/{cfg.num_kv_heads} vocab {cfg.padded_vocab} segments "
         f"{model.segment_lengths()} params {n_params / 1e9:.3f} B in bf16")
     engine = ServingEngine(model, params, graph, planner, link, batch_size=BATCH,
                            dtype=torch.bfloat16)
-    # 8 short prompts and 4 long ones.  The long ones carry a 31 ms SLO that
-    # their 1000-token prefill nearly spends (virtual time), so EDF serves
-    # them first and deadline demotion decodes them at earlier exits: the
-    # right-sized model runs on the card beside the full one.
-    reqs = make_requests(Request, cfg.vocab_size,
-                         [(SHORT_PROMPT, 0.4)] * 8 + [(LONG_PROMPT, 0.031)] * 4)
+    # 8 short prompts and 4 long ones, whose SLO demotes them (LONG_SLO)
+    log(f"serve: long-prompt SLO {LONG_SLO[arch] * 1e3:.0f} ms")
+    reqs = make_requests(Request, cfg.vocab_size, [(SHORT_PROMPT, SHORT_SLO)] * 8
+                         + [(LONG_PROMPT, LONG_SLO[arch])] * 4)
     # wall time of each batch (a batch ends on a host read of its tokens,
     # so the synchronisations here add no wait of their own)
     batches = []
@@ -357,6 +494,7 @@ def serve_main_path(torch):
     engine._serve_batch = timed_batch
     torch.cuda.synchronize()
     reset_launch_counts()
+    require(not any(launch_counts().values()), "serve: a launch counter did not reset")
     t0 = time.perf_counter()
     stats = engine.serve(reqs)
     torch.cuda.synchronize()
@@ -367,7 +505,8 @@ def serve_main_path(torch):
     log(f"serve exits {stats.exits} partitions {stats.partitions}")
     log(f"serve launches: {counts}")
     variants = engine.stepper.cache_stats()["jit"]["variants"]["serial"]
-    log(f"serve decode variants (model exits run): {variants}")
+    log(f"serve decode variants (model exits run): {variants}, "
+        f"{sorted(engine.stepper._decode_fns, key=lambda e: e or 0)}")
     for i, (b, s, sec) in enumerate(batches):
         log(f"serve batch {i}: {b} requests, prompt {s}, {sec:.4f} s, "
             f"{b * NEW_TOKENS / sec:.1f} tokens/s")
@@ -380,8 +519,9 @@ def serve_main_path(torch):
     h = engine.last_hidden
     require(h is not None and h.shape[1:] == (1, cfg.d_model)
             and torch.isfinite(h.float()).all().item(), "serve: bad last hidden state")
-    for name, n in counts.items():
-        require(n > 0, f"serve: kernel {name} was never launched on the main path")
+    for name in PATH_KERNELS[arch]:
+        require(counts[name] > 0, f"serve {arch}: kernel {name} was never launched "
+                "on the main path")
     require(variants > 1, "serve: no request was decoded at a demoted exit")
     return params, counts
 
@@ -405,64 +545,155 @@ def _to_f32(tree):
     return tree.float()
 
 
-def kernel_vs_plain(torch, params_bf16):
+def scan_f64(q, k, v, log_w, state, u=None):
+    """The plain scan computed in float64 and rounded to float32 at its
+    outputs: the scan of the float64-scan path of phase 7."""
+    from repro_torch.kernels.ssm_scan import ref as ss_ref
+    o, s = ss_ref.ssm_scan(q.double(), k.double(), v.double(), log_w.double(),
+                           state.double(), u=None if u is None else u.double())
+    return o.float(), s.float()
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def shadowed_scan(launch, worst):
+    """``launch`` (the scan wrapper), with each call held against the plain
+    version on the same inputs (see F32_UNIT); the worst shares of the
+    allowed error and the largest error go to ``worst``."""
+    from repro_torch.kernels.ssm_scan import ref as ss_ref
+
+    def scan(q, k, v, log_w, state, u=None):
+        o, s = launch(q, k, v, log_w, state, u=u)
+        po, ps = ss_ref.ssm_scan(q, k, v, log_w, state, u=u)
+        mo, ms = ss_ref.ssm_scan(q.abs(), k.abs(), v.abs(), log_w, state.abs(),
+                                 u=None if u is None else u.abs())
+        S, dk = q.shape[1], q.shape[3]
+        err = (o.float() - po.float()).abs()
+        share = (err / (SCAN_ATOL + ATTN_RTOL[str(v.dtype)] * po.float().abs()
+                        + 2 * (S + dk + 2) * F32_UNIT * mo.float())).max().item()
+        sshare = ((s - ps).abs() / (SCAN_ATOL + 2 * (S + 2) * F32_UNIT * ms)).max().item()
+        worst["calls"] += 1
+        worst["o"], worst["state"] = max(worst["o"], share), max(worst["state"], sshare)
+        worst["err"] = max(worst["err"], err.max().item())
+        return o, s
+    return scan
+
+
+def divergence(a, b, margins):
+    """Each row's first step where the tokens of runs ``a`` and ``b``
+    differ, with the top-2 margin of ``b`` there, and the distance of the
+    last hidden states on the rows that never differ."""
+    (pa, ha), (pb, hb) = a, b
+    flips = {}
+    for step, (x, y) in enumerate(zip(pa, pb)):
+        for row, (s, t) in enumerate(zip(x, y)):
+            if s != t and row not in flips:
+                flips[row] = (step, margins[step][row])
+    keep = [r for r in range(ha.shape[0]) if r not in flips]
+    err = (ha[keep] - hb[keep]).abs().max().item() if keep else float("nan")
+    return flips, err
+
+
+def kernel_vs_plain(torch, params_bf16, arch):
     """Serve two batches of 4 requests in float32 through the kernels and
     through the plain path: the 12-token batch that decodes at the full
-    exit, and phase 4's 1000-token batch whose deadline demotes it to the
-    earlier exits.  Tokens equal except where the plain top-2 margin is
-    below MARGIN_TOL, last hidden states allclose on the rows that did not
-    flip."""
+    exit, and the serve phase's 1000-token batch whose deadline demotes it
+    to the earlier exits (whose deeper segments then go stale).
+
+    On the kernel path every scan launch is held against the plain scan on
+    the same inputs, and every token against the plain head on the same
+    hidden state (equal unless its top-2 margin is below MARGIN_TOL).  End
+    to end, the llama3.2-1b paths' tokens are equal except where the plain
+    top-2 margin is below MARGIN_TOL, and their last hidden states within
+    HIDDEN_TOL on the rows that did not flip.  For rwkv6-3b (END_TO_END) the
+    end-to-end distances are measured and logged beside those of the plain
+    path from the same path with a float64 scan."""
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
     from repro_torch.models import Model
+    from repro_torch.models import linear_scan
     from repro_torch.serving import Request, ServingEngine
 
     params = _to_f32(params_bf16)
-    for label, plan in (("12-token", [(SHORT_PROMPT, 0.4)] * BATCH),
-                        ("1000-token demoted", [(LONG_PROMPT, 0.031)] * BATCH)):
+    impls = ("kernel", "dense") + (() if END_TO_END[arch] else ("float64 scan",))
+    for label, plan in (("12-token", [(SHORT_PROMPT, SHORT_SLO)] * BATCH),
+                        ("1000-token demoted", [(LONG_PROMPT, LONG_SLO[arch])] * BATCH)):
         runs = {}
-        for impl in ("kernel", "dense"):
-            cfg, graph, planner, link = serving_setup()
+        worst = {"calls": 0, "o": 0.0, "state": 0.0, "err": 0.0, "tokens": 0}
+        for impl in impls:
+            cfg, graph, planner, link = serving_setup(arch)
             engine = ServingEngine(Model(cfg), params, graph, planner, link,
-                                   batch_size=BATCH, dtype=torch.float32, impl=impl)
+                                   batch_size=BATCH, dtype=torch.float32,
+                                   impl="kernel" if impl == "kernel" else "dense")
             picked, margin = [], []
             inner = engine.stepper.next_token
 
             def next_token(p, h, inner=inner, picked=picked, margin=margin,
                            impl=impl, model=engine.model):
                 tok = inner(p, h)
+                logits = model.logits(p, h)[:, -1].float()
+                top2 = logits.topk(2, dim=-1).values
+                m = (top2[:, 0] - top2[:, 1]).tolist()
+                if impl == "kernel":
+                    for row, (x, y) in enumerate(zip(tok[:, 0].tolist(),
+                                                     logits.argmax(-1).tolist())):
+                        require(x == y or m[row] < MARGIN_TOL,
+                                f"{label}: the exit head picked {x}, the plain head {y} "
+                                f"on the same hidden state (margin {m[row]})")
+                    worst["tokens"] += len(m)
                 picked.append(tok[:, 0].tolist())
-                if impl == "dense":
-                    logits = model.logits(p, h)[:, -1].float()
-                    top2 = logits.topk(2, dim=-1).values
-                    margin.append((top2[:, 0] - top2[:, 1]).tolist())
+                margin.append(m)
                 return tok
 
             engine.stepper.next_token = next_token
-            stats = engine.serve(make_requests(Request, cfg.vocab_size, plan))
+            patch = {"kernel": (ss_ops, "ssm_scan", shadowed_scan(ss_ops.ssm_scan, worst)),
+                     "float64 scan": (linear_scan, "scan_sequential", scan_f64)}.get(impl)
+            with patched(*patch) if patch else contextlib.nullcontext():
+                stats = engine.serve(make_requests(Request, cfg.vocab_size, plan))
             torch.cuda.synchronize()
             variants = engine.stepper.cache_stats()["jit"]["variants"]["serial"]
             runs[impl] = (stats, picked, margin, engine.last_hidden, variants)
-        (sk, pk, _, h_kernel, vk), (sd, pd, md, h_plain, _) = runs["kernel"], runs["dense"]
-        require(sk.exits == sd.exits and sk.summary() == sd.summary(),
-                f"{label}: kernel and plain paths planned differently")
+        sk, _, _, _, vk = runs["kernel"]
+        for impl, (st, *_rest) in runs.items():
+            require(st.exits == sk.exits and st.summary() == sk.summary(),
+                    f"{label}: the {impl} path planned differently from the kernel path")
         if plan[0][0] == LONG_PROMPT:
             require(vk > 1, f"{label}: no decode step ran at a demoted exit")
-        flipped = set()
-        for step, (a, b) in enumerate(zip(pk, pd)):
-            for row, (x, y) in enumerate(zip(a, b)):
-                if row in flipped or x == y:
-                    continue
-                log(f"token flip ({label}) step {step} row {row}: kernel {x} plain {y}, "
-                    f"plain top-2 margin {md[step][row]:.3g}")
-                require(md[step][row] < MARGIN_TOL, "token differs where the plain "
-                        "path's margin is above tolerance")
-                flipped.add(row)
-        keep = [r for r in range(h_kernel.shape[0]) if r not in flipped]
-        e = (h_kernel[keep] - h_plain[keep]).abs().max().item() if keep else 0.0
-        log(f"kernel vs plain (f32, full width, {label}): {len(pd)} token steps x "
-            f"{h_kernel.shape[0]} rows, decode variants {vk}, last exit {sk.exits[-1]}, "
-            f"flips {sorted(flipped)}, last hidden max_abs_err {e:.3g} "
-            f"(tol {HIDDEN_TOL}), min plain margin {min(min(m) for m in md):.3g}")
-        require(e <= HIDDEN_TOL, f"{label}: last hidden states differ by {e}")
+        if "ssm_scan" in PATH_KERNELS[arch]:
+            require(worst["calls"] > 0, f"{label}: no scan launch was held")
+        require(worst["o"] <= 1.0 and worst["state"] <= 1.0,
+                f"{label}: a scan launch disagrees with the plain scan on its inputs: "
+                f"{worst['o']} / {worst['state']} of the allowed error")
+        log(f"kernel path ({arch}, f32, full width, {label}): {worst['calls']} scan launches "
+            f"held against the plain scan on their inputs, o max_abs_err {worst['err']:.3g}, "
+            f"worst err/allowed o {worst['o']:.3g} state {worst['state']:.3g}; "
+            f"{worst['tokens']} tokens held "
+            f"against the plain head on the same hidden state")
+        for a, b in (("kernel", "dense"), ("dense", "float64 scan"),
+                     ("kernel", "float64 scan")):
+            if b not in runs:
+                continue
+            _, pa, _, ha, _ = runs[a]
+            _, pb, mb, hb, _ = runs[b]
+            flips, e = divergence((pa, ha), (pb, hb), mb)
+            log(f"{a} vs {b} path ({arch}, f32, full width, {label}): {len(pb)} token "
+                f"steps x {hb.shape[0]} rows, decode variants {vk}, last exit "
+                f"{sk.exits[-1]}, first flip (step, {b} top-2 margin) by row "
+                f"{ {r: (st, round(m, 6)) for r, (st, m) in sorted(flips.items())} }, "
+                f"last hidden max_abs_err {e:.3g} on the other rows (tol {HIDDEN_TOL}), "
+                f"min {b} margin {min(min(m) for m in mb):.3g}")
+            if END_TO_END[arch] and (a, b) == ("kernel", "dense"):
+                require(all(m < MARGIN_TOL for _, m in flips.values()),
+                        f"{label}: a token differs where the plain path's margin is "
+                        "above tolerance")
+                require(not e > HIDDEN_TOL, f"{label}: last hidden states differ by {e}")
 
 
 # ---------------------------------------------------------------- main
@@ -505,11 +736,16 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
-    # -- 4 the main path
-    params, counts = serve_main_path(torch)
-
-    # -- 5 kernel path against plain path
-    kernel_vs_plain(torch, params)
+    # -- 4-7 the main paths, each with its kernel path against its plain path
+    launches = {}
+    for arch in (LLAMA, RWKV):
+        params, counts = serve_main_path(torch, arch)
+        kernel_vs_plain(torch, params, arch)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        del params
+        torch.cuda.empty_cache()
+    log(f"launches over the served paths: {launches}")
 
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -518,12 +754,14 @@ def main() -> int:
                              "src/repro/kernels/flash_attention/decode.py:69"),
         "exit_confidence": ("src/repro_torch/kernels/csrc/exit_head.cu",
                             "src/repro/kernels/exit_head/kernel.py:78"),
+        "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/kernel.py:80"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         t = record[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": launches[name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -74,13 +74,19 @@ def lm_graph(cfg, accuracy: Optional[Sequence[float]] = None,
 
     def seg_layer(si: int, n_units: int) -> GraphLayer:
         flops = _segment_flops(cfg, n_units, batch, seq)
-        # the dense family ships no recurrent state with a cut; the SSM and
-        # hybrid families (and their state_bytes) arrive with their slice
+        # the recurrent state that ships with a cut after this segment
+        state = 0
+        if cfg.family == "ssm":
+            state = n_units * batch * cfg.num_heads * cfg.hd * cfg.hd * 4
+        elif cfg.family == "hybrid":
+            from repro_torch.models import mamba2 as M2
+            state = n_units * batch * M2.n_heads(cfg) * cfg.ssm_state * M2.DH * 4
         return GraphLayer(
             name=f"seg{si}", kind="block",
             features={"in_size": float(act_bytes), "flops": flops},
             out_bytes=act_bytes, flops=flops,
             bytes_moved=_segment_param_bytes(cfg, n_units, dtype_bytes),
+            state_bytes=state,
         )
 
     layers = [seg_layer(si, n) for si, n in enumerate(segs)]

@@ -14,7 +14,8 @@ from typing import Dict
 def _counters():
     from repro_torch.kernels.exit_head import ops as eh_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    return (fa_ops.LAUNCHES, eh_ops.LAUNCHES)
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    return (fa_ops.LAUNCHES, eh_ops.LAUNCHES, ss_ops.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "decode_attention_fwd": [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I, _P],
     "exit_head_fwd": [_P, _P] + [_I] * 4 + [_P] * 7 + [_I, _P],
+    "ssm_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 16 + [_I, _P],
 }
 
 

@@ -1,9 +1,10 @@
 """Unified model facade (the counterpart of ``src/repro/models/api.py``).
 
-``Model(cfg)`` serves the dense family in this slice of the port and
-exposes ``init_params / init_cache / prefill / decode_step / logits /
-forward``.  Every other family raises :class:`NotImplementedError` naming
-the ``ROADMAP.md`` item that brings it.
+``Model(cfg)`` dispatches to the family stack (``transformer`` for the dense
+family, ``ssm_stack`` for the ssm and hybrid families) and exposes
+``init_params / init_cache / prefill / decode_step / logits / forward``.
+Every other family raises :class:`NotImplementedError` naming the
+``ROADMAP.md`` item that brings it.
 """
 from __future__ import annotations
 
@@ -13,14 +14,14 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import ssm_stack, transformer
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
     """The ``ROADMAP.md`` queue step (open item 1) that ports ``cfg``'s
-    family, or None for the dense family this slice serves."""
+    family, or None for the families the port serves."""
     if cfg.family in ("ssm", "hybrid"):
-        return "step 2, ssm_scan with the SSM/hybrid families"
+        return None
     if cfg.is_encdec:
         return "step 7, enc-dec (models/encdec.py)"
     if cfg.num_experts:
@@ -39,15 +40,15 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name} is not ported yet: ROADMAP.md open item 1, {missing}")
         self.cfg = cfg
-        self.stack = transformer
+        self.stack = ssm_stack if cfg.family in ("ssm", "hybrid") else transformer
 
     # ------------------------------------------------------------------ params
     def init_params(self, generator: Optional[torch.Generator] = None,
                     dtype=torch.bfloat16, device="cuda"):
-        return transformer.init_params(self.cfg, generator, dtype, device)
+        return self.stack.init_params(self.cfg, generator, dtype, device)
 
     def segment_lengths(self):
-        return transformer.segment_lengths(self.cfg)
+        return self.stack.segment_lengths(self.cfg)
 
     @property
     def num_segments(self) -> int:
@@ -55,18 +56,24 @@ class Model:
 
     # ------------------------------------------------------------------ eval
     def forward(self, params, tokens, *, exit_point=None, impl="kernel"):
-        return transformer.forward(self.cfg, params, tokens,
-                                   exit_point=exit_point, impl=impl)
+        return self.stack.forward(self.cfg, params, tokens,
+                                  exit_point=exit_point, impl=impl)
 
     # ------------------------------------------------------------------ serving
     def init_cache(self, batch, max_seq, dtype=torch.bfloat16, device="cuda"):
-        return transformer.init_cache(self.cfg, batch, max_seq, dtype, device)
+        return self.stack.init_cache(self.cfg, batch, max_seq, dtype, device)
 
     def prefill(self, params, tokens, cache, *, impl="kernel"):
-        return transformer.prefill(self.cfg, params, tokens, cache, impl=impl)
+        return self.stack.prefill(self.cfg, params, tokens, cache, impl=impl)
 
     def decode_step(self, params, cache, tokens, pos, *, exit_point=None,
                     with_exit_confidence=False, impl="kernel"):
+        """``with_exit_confidence`` is ignored by the ssm and hybrid
+        families, which report no intermediate exits (``[]``), as the
+        reference."""
+        if self.stack is ssm_stack:
+            return ssm_stack.decode_step(self.cfg, params, cache, tokens, pos,
+                                         exit_point=exit_point, impl=impl)
         return transformer.decode_step(self.cfg, params, cache, tokens, pos,
                                        exit_point=exit_point,
                                        with_exit_confidence=with_exit_confidence,

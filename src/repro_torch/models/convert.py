@@ -5,7 +5,8 @@ replay, so the port is held against the reference on the reference's own
 parameters: the caller turns the JAX pytree into nested dicts of numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``) and hands it here.
 Weights keep the reference's ``[in, out]`` layout (the port multiplies
-``x @ W`` as the reference does), so every leaf is copied as it is.
+``x @ W`` as the reference does), so every leaf is copied as it is, and the
+port's tree has the reference's structure for every family it serves.
 """
 from __future__ import annotations
 
@@ -14,38 +15,43 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import transformer
+from repro_torch.models.api import Model
 
-_UNIT_KEYS = {"attn": ("wq", "wk", "wv", "wo", "ln"),
-              "ffn": ("wg", "wu", "wd", "ln")}
+#: leaves that stay float32 whatever the model dtype, as in the reference
+#: (RWKV-6's decay base and bonus, Mamba-2's A, D and dt bias)
+F32_LEAVES = ("w0", "u", "A_log", "D", "dt_bias")
 
 
-def _leaf(a, dtype, device):
-    t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
-    return t.to(device=device, dtype=dtype)
+def _convert(tree, dtype, device, key=None):
+    if isinstance(tree, dict):
+        return {k: _convert(v, dtype, device, k) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_convert(v, dtype, device, key) for v in tree)
+    t = torch.from_numpy(np.array(tree, dtype=np.float32, copy=True))
+    return t.to(device=device, dtype=torch.float32 if key in F32_LEAVES else dtype)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def params_from_numpy(cfg: ModelConfig, tree, *, dtype=torch.float32,
                       device="cuda"):
-    """``tree``: ``embed`` [V, D], ``segments`` (a tuple with one dict per
-    segment of stacked ``[n, ...]`` unit leaves), ``final_norm`` [D] and
-    ``exit_norms`` [n_seg - 1, D].  Returns the port's parameter dict."""
+    """``tree``: the reference's parameter pytree of numpy arrays —
+    ``embed`` [V, D], ``segments`` (a tuple with one dict per segment of
+    stacked ``[n, ...]`` unit leaves), ``final_norm`` [D], ``exit_norms``
+    [n_seg - 1, D] and, for the hybrid family, the unstacked
+    ``shared_attn`` and ``shared_ffn``.  Returns the port's parameter dict."""
     dev = resolve(device)
-    segs = transformer.segment_lengths(cfg)
+    segs = Model(cfg).segment_lengths()
     if len(tree["segments"]) != len(segs):
         raise ValueError(f"{len(tree['segments'])} segments, config has {len(segs)}")
-    out = {"embed": _leaf(tree["embed"], dtype, dev)}
-    seg_out = []
     for n, seg in zip(segs, tree["segments"]):
-        unit = {}
-        for block, keys in _UNIT_KEYS.items():
-            unit[block] = {k: _leaf(seg[block][k], dtype, dev) for k in keys}
-            if unit[block]["ln"].shape[0] != n:
-                raise ValueError(f"segment stacks {unit[block]['ln'].shape[0]} "
-                                 f"units, config has {n}")
-        seg_out.append(unit)
-    out["segments"] = tuple(seg_out)
-    out["final_norm"] = _leaf(tree["final_norm"], dtype, dev)
-    if "exit_norms" in tree:
-        out["exit_norms"] = _leaf(tree["exit_norms"], dtype, dev)
-    return out
+        depths = {np.shape(leaf)[0] for leaf in _leaves(seg)}
+        if depths != {n}:
+            raise ValueError(f"segment stacks {sorted(depths)} units, config has {n}")
+    return _convert(tree, dtype, dev)

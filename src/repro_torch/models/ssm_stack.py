@@ -1,0 +1,242 @@
+"""Stacks for the attention-free / hybrid families (the counterpart of
+``src/repro/models/ssm_stack.py``).
+
+* ``ssm``    — rwkv6-3b: RWKV-6 blocks; recurrent state replaces the KV
+  cache (O(1) decode).
+* ``hybrid`` — zamba2-2.7b: Mamba-2 blocks with one weight-SHARED
+  attention+FFN block applied every ``hybrid_attn_period`` blocks.  Segments
+  are aligned to the period so the unit is (period x mamba blocks, shared
+  attn).
+
+Early-exit heads sit between segments, exactly as in ``transformer.py``.
+Each segment's parameters and state are stacked along a leading
+``[n_units]`` axis as in the reference; a Python loop over the units takes
+the place of its ``lax.scan``.  The recurrent state is returned as new
+tensors, as the reference does; the hybrid's shared-attention KV cache is
+written in place, as the dense family's.  ``impl`` selects the scan and the
+shared attention (``"kernel"``: the port's kernels through their wrappers;
+``"dense"``: the reference's plain paths).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import rwkv6 as R6
+
+
+def _round_to(x, m):
+    return max(m, int(round(x / m)) * m)
+
+
+def segment_lengths(cfg: ModelConfig):
+    unit = cfg.hybrid_attn_period if cfg.family == "hybrid" else 1
+    L_ = cfg.num_layers
+    bounds = []
+    for li in cfg.exit_layer_indices():
+        b = min(max(unit, _round_to(li, unit)), L_ - unit)
+        if b not in bounds:
+            bounds.append(b)
+    edges = [0] + sorted(bounds) + [L_]
+    return [b - a for a, b in zip(edges[:-1], edges[1:])]
+
+
+# ----------------------------------------------------------------------------
+# params
+# ----------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator=None, dtype=torch.bfloat16,
+                device="cuda"):
+    """Random parameters drawn from ``generator`` (seed 0 when None); see
+    :func:`repro_torch.models.transformer.init_params`."""
+    dev = resolve(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    segs = segment_lengths(cfg)
+    init_layer = R6.init_layer if cfg.family == "ssm" else M2.init_layer
+    params = {
+        "embed": L.init_embed(generator, cfg, dtype, dev),
+        "segments": tuple(init_layer(generator, cfg, dtype, dev, stack=n)
+                          for n in segs),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if cfg.family == "hybrid":
+        params["shared_attn"] = L.init_attn(generator, cfg, dtype, dev)
+        params["shared_ffn"] = L.init_ffn(generator, cfg, dtype, dev)
+    if cfg.num_exits:
+        params["exit_norms"] = torch.ones((len(segs) - 1, cfg.d_model),
+                                          dtype=dtype, device=dev)
+    return params
+
+
+# ----------------------------------------------------------------------------
+# state ("cache") — the recurrent state that ships at a partition cut
+# ----------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device="cuda"):
+    dev = resolve(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    segs = []
+    for n in segment_lengths(cfg):
+        if cfg.family == "ssm":
+            segs.append({
+                "wkv": torch.zeros((n, batch, cfg.num_heads, cfg.hd, cfg.hd), **f32),
+                "last_tm": torch.zeros((n, batch, 1, cfg.d_model), **f32),
+                "last_cm": torch.zeros((n, batch, 1, cfg.d_model), **f32),
+            })
+        else:
+            hm, ns = M2.n_heads(cfg), cfg.ssm_state
+            segs.append({
+                "ssm": torch.zeros((n, batch, hm, ns, M2.DH), **f32),
+                "conv": torch.zeros((n, batch, M2.CONV_W - 1, M2.d_inner(cfg) + 2 * ns),
+                                    **f32),
+            })
+    cache = {"segments": tuple(segs)}
+    if cfg.family == "hybrid":
+        napp = cfg.num_layers // cfg.hybrid_attn_period
+        shape = (napp, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+        cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    return cache
+
+
+# ----------------------------------------------------------------------------
+# segment runners
+# ----------------------------------------------------------------------------
+
+def _unit(tree, u: int):
+    return {k: v[u] for k, v in tree.items()}
+
+
+def _run_rwkv_segment(cfg, segp, x, seg_state, *, mode="auto", impl="kernel"):
+    n = seg_state["wkv"].shape[0]
+    wkv, last_tm, last_cm = [], [], []
+    for u in range(n):
+        st = _unit(seg_state, u)
+        x, s, lasts = R6.block(_unit(segp, u), cfg, x, st["wkv"],
+                               (st["last_tm"].to(x.dtype), st["last_cm"].to(x.dtype)),
+                               mode=mode, impl=impl)
+        wkv.append(s)
+        last_tm.append(lasts[0].float())
+        last_cm.append(lasts[1].float())
+    return x, {"wkv": torch.stack(wkv), "last_tm": torch.stack(last_tm),
+               "last_cm": torch.stack(last_cm)}
+
+
+def _run_mamba_segment(cfg, params, segp, x, seg_state, shared_cache, positions,
+                       *, mode="auto", impl="kernel", cache_pos=None,
+                       prefill_mode=False):
+    """Segment of ``n`` mamba blocks; the shared attn block after every
+    ``hybrid_attn_period`` blocks.  ``shared_cache``: (k, v) views of this
+    segment's applications, [napp_seg, B, T, KV, hd] (written in place), or
+    None (no cache)."""
+    period = cfg.hybrid_attn_period
+    n = seg_state["ssm"].shape[0]
+    ssm, conv = [], []
+    for a in range(n // period):
+        for u in range(a * period, (a + 1) * period):
+            st = _unit(seg_state, u)
+            o, s, c = M2.block(_unit(segp, u), cfg, x, st["ssm"],
+                               st["conv"].to(x.dtype), mode=mode, impl=impl)
+            x = x + o
+            ssm.append(s)
+            conv.append(c.float())
+        # weight-shared attention + ffn block
+        kv = None if shared_cache is None else (shared_cache[0][a], shared_cache[1][a])
+        out, _ = L.attention(params["shared_attn"], cfg, x, positions, kv_cache=kv,
+                             cache_pos=cache_pos, impl=impl, prefill_mode=prefill_mode)
+        x = x + out
+        x = x + L.ffn(params["shared_ffn"], cfg, x)
+    return x, {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+
+
+# ----------------------------------------------------------------------------
+# public API (mirrors transformer.py)
+# ----------------------------------------------------------------------------
+
+def _stack_forward(cfg, params, x, cache, *, mode, exit_point=None,
+                   collect_exits=True, impl="kernel", cache_pos=None,
+                   prefill_mode=False):
+    """Run segments [0, exit_point] (all when None).  Segments past the exit
+    are not run: their state stays as it was (stale), as in the reference.
+    Returns (outs, new_cache); ``outs`` is a list of (segment, normed
+    hidden)."""
+    B, S, _ = x.shape
+    base = 0 if cache_pos is None else cache_pos
+    if isinstance(base, torch.Tensor) and base.ndim == 1:
+        base = base.to(x.device)[:, None]
+    positions = (base + torch.arange(S, device=x.device)[None]).expand(B, S)
+    segs = segment_lengths(cfg)
+    n_seg = len(segs) if exit_point is None else exit_point + 1
+    new_segments = list(cache["segments"])
+    outs = []
+    app_off = 0
+    for si in range(n_seg):
+        segp = params["segments"][si]
+        if cfg.family == "ssm":
+            x, nst = _run_rwkv_segment(cfg, segp, x, cache["segments"][si],
+                                       mode=mode, impl=impl)
+        else:
+            napp = segs[si] // cfg.hybrid_attn_period
+            shared = None
+            if "shared_k" in cache:
+                shared = (cache["shared_k"][app_off:app_off + napp],
+                          cache["shared_v"][app_off:app_off + napp])
+            x, nst = _run_mamba_segment(cfg, params, segp, x, cache["segments"][si],
+                                        shared, positions, mode=mode, impl=impl,
+                                        cache_pos=cache_pos, prefill_mode=prefill_mode)
+            app_off += napp
+        new_segments[si] = nst
+        is_last = si == n_seg - 1
+        if not is_last and cfg.num_exits and collect_exits:
+            outs.append((si, L.rms_norm(x, params["exit_norms"][si], cfg.norm_eps)))
+        if is_last:
+            norm = params["final_norm"] if exit_point in (None, len(segs) - 1) \
+                else params["exit_norms"][si]
+            outs.append((si, L.rms_norm(x, norm, cfg.norm_eps)))
+    return outs, dict(cache, segments=tuple(new_segments))
+
+
+def forward(cfg: ModelConfig, params, tokens, *, exit_point=None,
+            collect_exits=True, impl="kernel"):
+    """Eval forward.  Returns a list of (exit_idx, hidden_normed)."""
+    x = L.embed(params["embed"], tokens)
+    cache = init_cache(cfg, tokens.shape[0], max_seq=tokens.shape[1],
+                       dtype=x.dtype, device=x.device)
+    outs, _ = _stack_forward(cfg, params, x, cache, mode="auto",
+                             exit_point=exit_point, collect_exits=collect_exits,
+                             impl=impl, prefill_mode=True,
+                             cache_pos=0 if cfg.family == "hybrid" else None)
+    return outs
+
+
+def prefill(cfg: ModelConfig, params, tokens, cache, *, impl="kernel"):
+    """Runs the prompt through every segment; the hybrid writes its shared
+    attention's KV at [0, S).  Returns (final_hidden_last_tok, cache)."""
+    x = L.embed(params["embed"], tokens)
+    outs, new_cache = _stack_forward(cfg, params, x, cache, mode="auto",
+                                     collect_exits=False, impl=impl,
+                                     prefill_mode=True,
+                                     cache_pos=0 if cfg.family == "hybrid" else None)
+    _, h = outs[-1]
+    return h[:, -1:, :], new_cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
+                exit_point=None, impl="kernel"):
+    """One decode step (tokens [B,1]; ``pos`` an int or a [B] tensor) through
+    segments [0, exit_point].  Returns (normed_hidden [B,1,D], cache, []):
+    these families report no intermediate exit confidences, as the
+    reference."""
+    if isinstance(pos, torch.Tensor) and pos.ndim == 0:
+        pos = int(pos)
+    x = L.embed(params["embed"], tokens)
+    outs, new_cache = _stack_forward(cfg, params, x, cache, mode="sequential",
+                                     exit_point=exit_point, collect_exits=False,
+                                     impl=impl, cache_pos=pos)
+    _, h = outs[-1]
+    return h, new_cache, []

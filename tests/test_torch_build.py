@@ -8,6 +8,7 @@ import torch
 from repro_torch.kernels import build, launch_counts
 from repro_torch.kernels.exit_head import ops as eh_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssm_scan import ops as ss_ops
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -43,6 +44,9 @@ def test_a_tensor_off_the_cpu_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         eh_ops.exit_confidence(torch.empty((1, 1, 64), device="meta"),
                                torch.empty((100, 64), device="meta"))
+    x = torch.empty((1, 3, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ss_ops.ssm_scan(x, x, x, x, torch.empty((1, 2, 64, 64), device="meta"))
     assert launch_counts() == before
 
 
@@ -53,10 +57,21 @@ def test_decode_attention_is_single_query_on_every_device():
         fa_ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32))
 
 
+def test_every_entry_point_has_a_signature():
+    """Each ``extern "C"`` entry point of ``csrc/`` is bound by ctypes with
+    its argument types, and each bound name exists in a source."""
+    import re
+    names = set()
+    for src in build._sources()[0]:
+        names |= set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
+    assert names == set(build._SIGNATURES)
+
+
 def test_build_key_follows_sources_and_flags(monkeypatch):
     key = build._digest()
     assert key == build._digest() and len(key) == 16
     assert sorted(p.name for p in build._sources()[0]) == [
-        "common.cu", "decode_attention.cu", "exit_head.cu", "flash_attention.cu"]
+        "common.cu", "decode_attention.cu", "exit_head.cu", "flash_attention.cu",
+        "ssm_scan.cu"]
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     assert build._digest() != key

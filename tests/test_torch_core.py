@@ -37,9 +37,9 @@ def _plan_tuple(p):
                                    p.accuracy, p.feasible, p.cuts)
 
 
-def _graphs(full, batch):
-    rc = ref_get_config(ARCH) if full else ref_get_smoke(ARCH)
-    pc = get_config(ARCH) if full else get_smoke_config(ARCH)
+def _graphs(full, batch, arch=ARCH):
+    rc = ref_get_config(arch) if full else ref_get_smoke(arch)
+    pc = get_config(arch) if full else get_smoke_config(arch)
     return (ref_graph.lm_graph(rc, batch=batch, seq=1),
             graph.lm_graph(pc, batch=batch, seq=1))
 
@@ -53,9 +53,7 @@ def test_configs_match():
             (b.padded_vocab, b.padded_heads, b.param_count())
 
 
-@pytest.mark.parametrize("full", [True, False], ids=["full", "smoke"])
-def test_lm_graph_matches(full):
-    rg, pg = _graphs(full, batch=4)
+def _assert_graphs_equal(rg, pg):
     assert (rg.name, rg.accuracy, rg.input_bytes, rg.result_bytes) == \
         (pg.name, pg.accuracy, pg.input_bytes, pg.result_bytes)
     assert len(rg.branches) == len(pg.branches)
@@ -64,6 +62,24 @@ def test_lm_graph_matches(full):
                  l.bytes_moved, l.state_bytes) for l in rb] == \
             [(l.name, l.kind, l.features, l.out_bytes, l.flops,
               l.bytes_moved, l.state_bytes) for l in pb]
+    for e in range(1, rg.num_exits + 1):
+        for p in range(len(rg.branches[e - 1]) + 1):
+            assert rg.cut_bytes(e, p) == pg.cut_bytes(e, p)
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "smoke"])
+def test_lm_graph_matches(full):
+    _assert_graphs_equal(*_graphs(full, batch=4))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("full", [True, False], ids=["full", "smoke"])
+def test_ssm_family_graphs_match(full, arch):
+    """The ssm and hybrid graphs, including the recurrent state that ships
+    with a cut (``state_bytes``) and so the bytes of every cut."""
+    rg, pg = _graphs(full, batch=4, arch=arch)
+    _assert_graphs_equal(rg, pg)
+    assert all(l.state_bytes > 0 for l in pg.branches[-1][:-1])
 
 
 @pytest.mark.parametrize("full", [True, False], ids=["full", "smoke"])
@@ -84,6 +100,23 @@ def test_plans_match_over_bandwidth_sweep(full, slo):
                 == _plan_tuple(partitioner.optimize_multi(pg, pfe, pfd, bw, slo, speeds, **kw))
             assert _plan_tuple(rp.plan_multi(bw, speeds, **kw)) == \
                 _plan_tuple(pp.plan_multi(bw, speeds, **kw))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("slo", [0.004, 0.05, 0.4])
+def test_ssm_family_plans_match(arch, slo):
+    """Edgent plans of the full-size ssm and hybrid graphs, whose cuts
+    carry the recurrent state, over the bandwidth sweep."""
+    rg, pg = _graphs(True, batch=4, arch=arch)
+    rfe, rfd = _tiers(RefRoofline)
+    pfe, pfd = _tiers(RooflineLatencyModel)
+    rp = RefPlanner(rg, latency_req_s=slo).with_models(rfe, rfd)
+    pp = EdgentPlanner(pg, latency_req_s=slo).with_models(pfe, pfd)
+    for bw in BWS:
+        assert _plan_tuple(rp.plan(bw)) == _plan_tuple(pp.plan(bw))
+        kw = dict(device_load=1.5, edge_bw_bps=bw * 10)
+        assert _plan_tuple(rp.plan_multi(bw, (1.0, 2.0), **kw)) == \
+            _plan_tuple(pp.plan_multi(bw, (1.0, 2.0), **kw))
 
 
 @pytest.mark.parametrize("trace", ["dcn", "lte"])

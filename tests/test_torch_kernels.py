@@ -4,8 +4,8 @@ interpret mode, over the shape sweeps of tests/test_kernels.py.  The CUDA
 kernels themselves are held against these plain versions on the card by
 chip_smoke.py.
 
-Tolerances: 2e-5 for attention and 1e-5 for the f32 exit head (those of
-tests/test_kernels.py), 5e-2 in bf16."""
+Tolerances: 2e-5 for attention, 1e-5 for the f32 exit head and 3e-4 for the
+scan (those of tests/test_kernels.py), 5e-2 in bf16."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,12 +15,15 @@ from repro.kernels.exit_head import ops as ref_eh_ops
 from repro.kernels.exit_head import ref as ref_eh
 from repro.kernels.flash_attention import ops as ref_fa_ops
 from repro.kernels.flash_attention import ref as ref_fa
+from repro.kernels.ssm_scan import ops as ref_ss_ops
+from repro.kernels.ssm_scan import ref as ref_ss
 from repro.models import layers as ref_layers
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.exit_head import ops as eh_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssm_scan import ops as ss_ops
 
-ATOL = {"attn": 2e-5, "head": 1e-5, "bf16": 5e-2}
+ATOL = {"attn": 2e-5, "head": 1e-5, "scan": 3e-4, "bf16": 5e-2}
 
 
 def _rand(seed, *shapes):
@@ -180,3 +183,65 @@ def test_exit_head_ties_take_first_index():
     assert got["token"].tolist() == [[3, 3]]
     assert np.asarray(want["token"]).tolist() == [[3, 3]]
     assert np.asarray(pallas["token"]).tolist() == [[3, 3]]
+
+
+# ---------------------------------------------------------------- ssm scan
+@pytest.mark.parametrize("rwkv", [True, False], ids=["rwkv", "mamba2"])
+@pytest.mark.parametrize("B,S,H,dk,dv", [
+    (2, 64, 3, 8, 16), (1, 32, 2, 64, 64), (1, 128, 4, 16, 64),
+])
+def test_ssm_scan_matches_reference(B, S, H, dk, dv, rwkv):
+    """The sweep of tests/test_kernels.py in both modes, against the
+    reference's sequential oracle and its Pallas kernel in interpret mode."""
+    q, k, v, lw, st0, u = _rand(S + dk, (B, S, H, dk), (B, S, H, dk), (B, S, H, dv),
+                                (B, S, H, dk), (B, H, dk, dv), (H, dk))
+    lw, st0, u = -np.exp(lw * 0.5), st0 * 0.1, (u * 0.1 if rwkv else None)
+    before = launch_counts()["ssm_scan"]
+    o, s1 = ss_ops.ssm_scan(_t(q), _t(k), _t(v), _t(lw), _t(st0),
+                            u=None if u is None else _t(u))
+    assert launch_counts()["ssm_scan"] == before         # CPU: no launch
+    assert o.dtype == torch.float32 and s1.dtype == torch.float32
+    ju = None if u is None else _j(u)
+    want = ref_ss.ssm_scan(_j(q), _j(k), _j(v), _j(lw), _j(st0), u=ju)
+    pallas = ref_ss_ops.ssm_scan(_j(q), _j(k), _j(v), _j(lw), _j(st0), u=ju, chunk=16)
+    for wo, ws in (want, pallas):
+        np.testing.assert_allclose(_np(o), _np(wo), rtol=ATOL["scan"], atol=ATOL["scan"])
+        np.testing.assert_allclose(_np(s1), _np(ws), rtol=ATOL["scan"], atol=ATOL["scan"])
+
+
+def test_ssm_scan_bf16_and_broadcast_views():
+    """bf16 q/k/v with f32 decay and state, and the Mamba-2 block's stride-0
+    views (B and C broadcast over heads, the decay over state channels):
+    output in v's dtype, state in f32, against the reference's oracle."""
+    B, S, H, N, DH = 1, 20, 3, 16, 16
+    bc, cc, x, dt = _rand(4, (B, S, N), (B, S, N), (B, S, H, DH), (B, S, H))
+    lw = -np.exp(dt * 0.5)
+    k = _t(bc, torch.bfloat16)[:, :, None].expand(B, S, H, N)
+    q = _t(cc, torch.bfloat16)[:, :, None].expand(B, S, H, N)
+    w = _t(lw)[..., None].expand(B, S, H, N)
+    o, s1 = ss_ops.ssm_scan(q, k, _t(x, torch.bfloat16), w, torch.zeros(B, H, N, DH))
+    assert o.dtype == torch.bfloat16 and s1.dtype == torch.float32
+    wo, ws = ref_ss.ssm_scan(
+        jnp.broadcast_to(_j(cc, jnp.bfloat16)[:, :, None], (B, S, H, N)),
+        jnp.broadcast_to(_j(bc, jnp.bfloat16)[:, :, None], (B, S, H, N)),
+        _j(x, jnp.bfloat16), jnp.broadcast_to(_j(lw)[..., None], (B, S, H, N)),
+        jnp.zeros((B, H, N, DH)))
+    np.testing.assert_allclose(_np(o), _np(wo), rtol=ATOL["bf16"], atol=ATOL["bf16"])
+    np.testing.assert_allclose(_np(s1), _np(ws), rtol=ATOL["scan"], atol=ATOL["scan"])
+
+
+def test_ssm_scan_plain_version_widens_float64():
+    """The plain scan computes in float32 for float32 and bfloat16 inputs and
+    in float64 for float64 ones (a more precise path to measure the float32
+    paths against)."""
+    q, k, v, lw, st0, u = _rand(9, (1, 24, 2, 16), (1, 24, 2, 16), (1, 24, 2, 8),
+                                (1, 24, 2, 16), (1, 2, 16, 8), (2, 16))
+    lw = -np.exp(lw * 0.5)
+    args32 = [_t(a) for a in (q, k, v, lw, st0, u)]
+    o32, s32 = ss_ops.ssm_scan(*args32[:5], u=args32[5])
+    o64, s64 = ss_ops.ssm_scan(*(a.double() for a in args32[:5]), u=args32[5].double())
+    assert o32.dtype == s32.dtype == torch.float32
+    assert o64.dtype == s64.dtype == torch.float64
+    assert not torch.equal(o64.float(), o32)
+    np.testing.assert_allclose(_np(o32), o64.numpy(), rtol=ATOL["scan"], atol=ATOL["scan"])
+    np.testing.assert_allclose(_np(s32), s64.numpy(), rtol=ATOL["scan"], atol=ATOL["scan"])

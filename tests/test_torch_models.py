@@ -184,7 +184,8 @@ def test_cache_write_past_end_is_an_error(pair):
 
 def test_other_families_refuse():
     from repro_torch.configs import get_config
-    for arch in ("rwkv6-3b", "llama4-scout-17b-a16e", "seamless-m4t-large-v2"):
+    for arch in ("llama4-scout-17b-a16e", "seamless-m4t-large-v2",
+                 "llava-next-mistral-7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(get_config(arch))
 

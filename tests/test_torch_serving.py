@@ -32,14 +32,18 @@ from repro_torch.serving.tiers import Link
 ARCH = "llama3.2-1b"
 
 
-@pytest.fixture(scope="module")
-def setups():
-    rcfg, cfg = ref_get_smoke(ARCH), get_smoke_config(ARCH)
+def _setups(arch):
+    rcfg, cfg = ref_get_smoke(arch), get_smoke_config(arch)
     rmodel, model = RefModel(rcfg), Model(cfg)
     rparams = rmodel.init_params(jax.random.key(0), dtype=jnp.float32)
     params = params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, rparams),
                                device="cpu")
     return (rcfg, rmodel, rparams), (cfg, model, params)
+
+
+@pytest.fixture(scope="module")
+def setups():
+    return _setups(ARCH)
 
 
 def _requests(cls, vocab):
@@ -61,8 +65,7 @@ def _planner(planner_cls, roofline, graph, dynamic, trace):
     return p
 
 
-@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
-def test_serve_matches_reference(setups, dynamic):
+def _serve_both(setups, dynamic):
     (rcfg, rmodel, rparams), (cfg, model, params) = setups
     rtrace, trace = ref_dcn_trace(0, 512), dcn_trace(0, 512)
     rgraph, graph = ref_lm_graph(rcfg, batch=2, seq=1), lm_graph(cfg, batch=2, seq=1)
@@ -86,6 +89,18 @@ def test_serve_matches_reference(setups, dynamic):
     # the last batch may be short: requests arrive one by one
     assert eng.last_hidden.shape[1:] == (1, cfg.d_model)
     assert torch.isfinite(eng.last_hidden).all()
+    return stats
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+def test_serve_matches_reference(setups, dynamic):
+    _serve_both(setups, dynamic)
+
+
+def test_serve_rwkv6_matches_reference():
+    """Smoke rwkv6-3b through its scan (the kernel's plain version here)
+    and the exit head gives the reference's tokens, plans and latencies."""
+    _serve_both(_setups("rwkv6-3b"), dynamic=False)
 
 
 def test_serve_dense_impl_matches_kernel_impl(setups):
@@ -145,3 +160,11 @@ def test_serve_launcher_on_cpu(dynamic, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             serve.main(["--requests", "1"])
+
+
+def test_serve_launcher_rwkv6_on_cpu(capsys):
+    from repro_torch.launch import serve
+    stats = serve.main(["--arch", "rwkv6-3b", "--device", "cpu", "--requests", "2",
+                        "--new-tokens", "3", "--batch", "2"])
+    assert all(len(t) == 3 for t in stats.tokens.values())
+    assert "served rwkv6-3b-smoke on cpu" in capsys.readouterr().out
