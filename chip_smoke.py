@@ -14,12 +14,15 @@ order; any failure exits non-zero:
    ``src/repro_torch/kernels/csrc`` into ``build/``;
 3. kernel checks: each kernel against its plain PyTorch version on the card
    at the main paths' full-width shapes, in bfloat16 and float32, with the
-   edge cases (a ragged prefill tile, a zero-length decode row, vocab ties;
+   edge cases (a ragged prefill tile, T > S prefill, a zero-length decode
+   row, decode lengths on a key-split boundary, one past it and past T, and
+   splits past every length, vocab ties;
    for the SSM scan both modes, rwkv6-3b's prefill and decode shapes from a
    non-zero state, zamba2-2.7b's Mamba-2 shapes read through stride-0
    broadcasts, and log_w = -8 everywhere); then each kernel timed with CUDA
    events beside its plain version, one library call for the same function
-   where there is one, and its bound on the card;
+   where there is one, and its bound on the card (attention also at the
+   short serving shapes, S 12 and T 29);
 4. serve llama3.2-1b: full width in bfloat16 through ``ServingEngine.serve``
    (Edgent plan, prefill, right-sized decode, exit-head token) with every
    launch counter at zero before and its kernels' above zero after;
@@ -115,6 +118,8 @@ F32_UNIT = 2.0 ** -24
 END_TO_END = {LLAMA: True, RWKV: False}
 TIMED_RUNS, WARMUP_RUNS = 20, 3
 L2_FLUSH_BYTES = 256 * 2**20          # > the H100's 50 MB L2
+SPIN_CYCLES = 2_000_000               # ~1 ms at the H100's clock
+HOST_CALLS, HOST_REPEATS = 50, 20
 
 
 class SmokeFailure(RuntimeError):
@@ -135,13 +140,19 @@ class Timer:
     """Median time of a callable on the card with CUDA events.  Each timed
     run starts with a cold L2 (a 256 MB buffer is written first), as the
     main path finds it: between two calls of a kernel the model streams far
-    more than 50 MB of weights."""
+    more than 50 MB of weights.  Each is then queued behind a spin of
+    SPIN_CYCLES on the card, so that the host has queued the launch before
+    the start event fires: otherwise a slow host's launch overhead counts
+    as device time for a short kernel (PERF.md, section 6).  A kernel is
+    also timed without the spin, and its wrapper's host time per call is
+    read on the host's clock, so that a host cost the spin hides still
+    shows."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn):
+    def ms(self, fn, spin=True):
         torch = self.torch
         for _ in range(WARMUP_RUNS):
             fn()
@@ -149,6 +160,8 @@ class Timer:
         pairs = []
         for _ in range(TIMED_RUNS):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -157,6 +170,30 @@ class Timer:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    def host_us(self, fn):
+        """Host time of one call in microseconds: the least, over
+        HOST_REPEATS batches, of HOST_CALLS back-to-back calls' wall time
+        over HOST_CALLS (the launches queue on the card meanwhile).  Other
+        work on the host only adds to a batch, so the least batch is the
+        call's own cost."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        per_call = []
+        for _ in range(HOST_REPEATS):
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            per_call.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+        return min(per_call)
+
+    def kernel(self, fn):
+        """A kernel wrapper's times: behind the spin (``ms``), without it
+        (``ms_unspun``), and on the host (``host_us``)."""
+        return dict(ms=self.ms(fn), ms_unspun=self.ms(fn, spin=False),
+                    host_us=self.host_us(fn))
 
 
 def bound(nbytes, flops, dtype, cfgmod):
@@ -214,28 +251,32 @@ def kernel_checks(torch, timer):
     record = {}
 
     # -- prefill flash attention: S 12 and 1000 (both ragged against the
-    #    64-row tile), and a head dim of 128
+    #    64- and 128-row tiles), a head dim of 128, and T > S (the causal
+    #    diagonal aligned bottom-right) at both head dims
+    short = {}
     for dt in (torch.bfloat16, torch.float32):
-        for B, S, h, kv, d in ((BATCH, SHORT_PROMPT, H, KV, hd),
-                               (BATCH, LONG_PROMPT, H, KV, hd),
-                               (2, 77, 4, 2, 128)):
-            q, k, v = randn(B, S, h, d, dtype=dt), randn(B, S, kv, d, dtype=dt), \
-                randn(B, S, kv, d, dtype=dt)
+        for B, S, Tk, h, kv, d in ((BATCH, SHORT_PROMPT, SHORT_PROMPT, H, KV, hd),
+                                   (BATCH, LONG_PROMPT, LONG_PROMPT, H, KV, hd),
+                                   (2, 77, 77, 4, 2, 128),
+                                   (2, 100, 300, 4, 2, 64),
+                                   (2, 100, 300, 4, 2, 128)):
+            q, k, v = randn(B, S, h, d, dtype=dt), randn(B, Tk, kv, d, dtype=dt), \
+                randn(B, Tk, kv, d, dtype=dt)
             out = fa_ops.flash_attention(q, k, v, causal=True)
             torch.cuda.synchronize()
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             plain = fa_ref.attention(qt.float(), kt.float(), vt.float(),
                                      causal=True).transpose(1, 2)
             e, share = attn_err(out, plain, dt)
-            log(f"check flash_attention {dt} B{B} S{S} H{h} KV{kv} hd{d}: "
+            log(f"check flash_attention {dt} B{B} S{S} T{Tk} H{h} KV{kv} hd{d}: "
                 f"max_abs_err {e:.3g}, worst err/allowed {share:.3g} ({tol_text(dt)})")
             require(torch.isfinite(out).all().item(), "flash_attention: non-finite output")
             require(share <= 1.0, f"flash_attention {dt} S{S} hd{d} disagrees: "
                     f"{share} of the allowed error")
-            if dt == torch.bfloat16 and h == H and d == hd:
+            if dt == torch.bfloat16 and h == H and d == hd and S == Tk:
                 qc, kc, vc = (x.transpose(1, 2).contiguous() for x in (q, k, v))
                 t = dict(
-                    ms=timer.ms(lambda: fa_ops.flash_attention(q, k, v, causal=True)),
+                    **timer.kernel(lambda: fa_ops.flash_attention(q, k, v, causal=True)),
                     plain_ms=timer.ms(lambda: fa_ref.attention(qt, kt, vt, causal=True)),
                     library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
                         qc, kc, vc, is_causal=True, enable_gqa=True)))
@@ -248,14 +289,26 @@ def kernel_checks(torch, timer):
                 log(f"time flash_attention {t}")
                 if S == LONG_PROMPT:
                     record["flash_attention"] = t
+                else:
+                    short["flash_attention"] = t
 
-    # -- decode attention: the serving cache (T = 1000 + 16 + 1), read in
-    #    place through a view of a [n_units, B, T, KV, hd] segment cache
+    # -- decode attention: the serving caches (T = 1000 + 16 + 1 and 12 + 16
+    #    + 1, the short one 544 of the 635 served launches), read in place
+    #    through a view of a [n_units, B, T, KV, hd] segment cache; the keys
+    #    are split in blocks of SPLIT_KEYS: lengths on a split boundary, one
+    #    past it, and splits past every length (empty partials)
     T = LONG_PROMPT + NEW_TOKENS + 1
+    T_SHORT = SHORT_PROMPT + NEW_TOKENS + 1
+    SK = fa_ops.SPLIT_KEYS
     for dt in (torch.bfloat16, torch.float32):
         for B, Tc, h, kv, d, lens in ((BATCH, T, H, KV, hd, [T - 1] * BATCH),
                                       (BATCH, T, H, KV, hd, [T, 0, 5, T // 2]),
-                                      (3, 200, 4, 1, 128, [200, 0, 63])):
+                                      (3, 200, 4, 1, 128, [200, 0, 63]),
+                                      (BATCH, T, H, KV, hd, [SK, 2 * SK, 5 * SK, 1]),
+                                      (BATCH, T, H, KV, hd, [SK + 1, 2 * SK + 1, 5 * SK + 1,
+                                                             T + 7]),
+                                      (BATCH, T, H, KV, hd, [SK - 28, 5, 0, SK]),
+                                      (BATCH, T_SHORT, H, KV, hd, [T_SHORT - 1] * BATCH)):
             ck, cv = randn(2, B, Tc, kv, d, dtype=dt), randn(2, B, Tc, kv, d, dtype=dt)
             q = randn(B, 1, h, d, dtype=dt)
             lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -274,12 +327,12 @@ def kernel_checks(torch, timer):
             if 0 in lens:
                 z = out[lens.index(0)].abs().max().item()
                 require(z == 0.0, f"decode_attention: zero-length row is not zero ({z})")
-            if dt == torch.bfloat16 and lens == [T - 1] * BATCH:
+            if dt == torch.bfloat16 and lens == [Tc - 1] * BATCH:
                 qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
                 valid = (torch.arange(Tc, device="cuda")[None, :] < lengths[:, None])
                 mask = valid[:, None, None, :]
                 t = dict(
-                    ms=timer.ms(lambda: fa_ops.decode_attention(q, ck[1], cv[1], lengths)),
+                    **timer.kernel(lambda: fa_ops.decode_attention(q, ck[1], cv[1], lengths)),
                     plain_ms=timer.ms(lambda: fa_ref.decode_attention(qt, kt, vt, lengths)),
                     library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
                         qc, kc, vc, attn_mask=mask, enable_gqa=True)))
@@ -292,7 +345,14 @@ def kernel_checks(torch, timer):
                          shape=f"B{B} T{Tc} H{h} KV{kv} hd{d} lengths {lens[0]}",
                          dtype=str(dt))
                 log(f"time decode_attention {t}")
-                record["decode_attention"] = t
+                if Tc == T:
+                    record["decode_attention"] = t
+                else:
+                    short["decode_attention"] = t
+    log("time at the short serving shapes: " + "; ".join(
+        f"{name} {t['shape']}: kernel {t['ms']} ms ({t['ms_unspun']} ms unspun, "
+        f"{t['host_us']} us on the host), library {t['library_ms']} ms, "
+        f"bound {t['bound_ms']} ms" for name, t in short.items()))
 
     # -- exit head: the main path's rows against the full tied embedding,
     #    with exact ties across chunks and warps, and a ragged small vocab
@@ -338,7 +398,7 @@ def kernel_checks(torch, timer):
                     return logits.argmax(-1), torch.exp(logits.max(-1).values - lse), \
                         lse - (p * logits).sum(-1)
 
-                t = dict(ms=timer.ms(lambda: eh_ops.exit_confidence(h, emb)),
+                t = dict(**timer.kernel(lambda: eh_ops.exit_confidence(h, emb)),
                          plain_ms=timer.ms(lambda: eh_ref.exit_confidence(h, emb)),
                          library_ms=timer.ms(library))
                 nbytes = (h.numel() + emb.numel()) * h.element_size() + 12 * rows
@@ -424,7 +484,7 @@ def scan_checks(torch, timer, randn):
             require(share <= 1.0 and sshare <= 1.0,
                     f"ssm_scan {dt} {shape} disagrees: {share} / {sshare} of the allowed error")
             if dt == torch.bfloat16 and not strong and S != SHORT_PROMPT:
-                t = dict(ms=timer.ms(lambda: ss_ops.ssm_scan(*args)),
+                t = dict(**timer.kernel(lambda: ss_ops.ssm_scan(*args)),
                          plain_ms=timer.ms(lambda: ss_ref.ssm_scan(*args)),
                          library_ms=None)
                 t["bound_ms"], t["bound_by"] = bound_of(args, o, s_out, dt)
@@ -763,6 +823,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "ms_unspun": t["ms_unspun"], "host_us": t["host_us"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": t["shape"], "dtype": t["dtype"]})

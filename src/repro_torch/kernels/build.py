@@ -5,7 +5,11 @@ use: one ``nvcc -c`` per source, all started together, then one link into a
 shared library with a plain C interface under ``build/`` at the repository
 root (``.gitignore`` lists it).  The library is loaded with :mod:`ctypes`;
 the file name carries a digest of the sources and flags, so an edited source
-is rebuilt and a stale library is never loaded.
+is rebuilt and a stale library is never loaded.  The link names the CUDA
+runtime alone: the one driver-API function the kernels use,
+``cuTensorMapEncodeTiled`` (the flash kernel's TMA tensor maps), is looked up
+at run time with ``cudaGetDriverEntryPoint``, and its absence is an error the
+wrapper raises.
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and a machine without ``nvcc`` never reaches :func:`library`.
@@ -42,7 +46,7 @@ build_log: str = ""
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    "decode_attention_fwd": [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I, _P],
+    "decode_attention_fwd": [_P] * 7 + [_I] * 6 + [_LL] * 6 + [_I, _P],
     "exit_head_fwd": [_P, _P] + [_I] * 4 + [_P] * 7 + [_I, _P],
     "ssm_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 16 + [_I, _P],
 }

@@ -22,7 +22,13 @@ constexpr float kNegInf = -1e30f;
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
 // Negative return codes for arguments an entry point does not take.
-enum ArgError : int { kBadDType = -1, kBadHeadDim = -2, kBadShape = -3 };
+enum ArgError : int {
+  kBadDType = -1,
+  kBadHeadDim = -2,
+  kBadShape = -3,
+  kNoDriverEntry = -4,   // the driver lacks cuTensorMapEncodeTiled
+  kTensorMap = -5,       // cuTensorMapEncodeTiled refused a tensor map
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

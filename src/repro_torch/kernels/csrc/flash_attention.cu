@@ -4,25 +4,75 @@
 //
 // What bounds it on this card: at the serving shapes (B 4, H 32, KV 8,
 // hd 64, S up to ~1000) the work is ~2*2*B*H*S*S/2*hd FLOPs against a few
-// MB of q/k/v, so it is bound by operations, not bytes.  This first version
-// does the products on the CUDA cores in f32 out of shared memory, which is
-// far below the tensor-core peak; wgmma tiles, TMA loads and a persistent
-// schedule are later work.
+// MB of q/k/v, so it is bound by operations, not bytes: at S 1000 the
+// tensor-core rate allows 0.0166 ms, and Hopper reaches that rate only
+// through wgmma.
 //
-// Design, against the TPU kernel:
-//  * One block per (q-tile, head, batch) reads kv head h / (H/KV): GQA needs
-//    no repeated k/v.
-//  * The Pallas grid walks k-tiles as a sequential grid axis and carries the
-//    online-softmax state in VMEM scratch (kernel.py:31-35, :62-65).  Blocks
-//    carry nothing between them on Hopper, so a loop over k-tiles inside the
-//    block takes that place, and it stops at the causal diagonal: tiles
-//    above it are never loaded (the block-pruned causality of kernel.py:58).
-//  * Online softmax in f32 with the finite -1e30 mask, as the reference.
-//  * The ragged last q- and k-tile are masked instead of asserting that S
-//    and T divide into blocks (kernel.py:77): serving prompts are 12 long.
-//  * The causal diagonal is aligned bottom-right (key j is visible to query
-//    i when j <= i + T - S), as ref.attention; with S == T it is j <= i.
+// What the Pallas kernel computes, kept by both kernels below:
+//  * scores and an online softmax in f32 with the finite -1e30 mask;
+//  * causal tiles above the diagonal never loaded (the block-pruned
+//    causality of kernel.py:58): the loop over k-tiles stops at the last
+//    key any live row of the block may see;
+//  * the causal diagonal aligned bottom-right (key j is visible to query i
+//    when j <= i + T - S), as ref.attention; with S == T it is j <= i;
+//  * the ragged last q- and k-tile masked, instead of asserting that S and
+//    T divide into blocks (kernel.py:77): serving prompts are 12 long;
+//  * GQA by index: query head h reads kv head h / (H/KV), no repeated k/v.
+// The Pallas grid walks k-tiles as a sequential grid axis and carries the
+// softmax state in VMEM scratch (kernel.py:31-35, :62-65); blocks carry
+// nothing between them on Hopper, so a loop over k-tiles inside the block
+// takes that place.
+//
+// bfloat16 (flash_fwd_wgmma, the prefill of the served model): tensor cores.
+//  * Work tiles of (head, batch, q-tile of 128 rows), each computed by two
+//    consumer warpgroups of 64 rows and fed by one producer warpgroup,
+//    whose registers setmaxnreg moves to the consumers (24 against 240 a
+//    thread).  The registers allow one block an SM, so the kernel is
+//    persistent: one block an SM walks the work tiles, heaviest first (the
+//    last q-tiles, with the most keys under the causal mask, then the ones
+//    before them), and the producer loads the next tile's Q (two slots)
+//    and first keys while the consumers finish this one.  At S 1000 that is
+//    1024 work tiles on 132 blocks; at S 12, 128 blocks of one tile.
+//  * Loads by TMA (cp.async.bulk.tensor): 4-D tensor maps over the model
+//    layout, {hd, H, S, B} for q and {hd, KV, T, B} for k and v, in boxes
+//    of 64 columns x 64 rows with the 128-byte swizzle that the wgmma
+//    descriptors read.  A 128-column head is two boxes, each with its own
+//    wgmma K-slices (or N-halves).  TMA zero-fills rows past S or T, so the
+//    ragged tile and a tile that would run into the next batch need nothing
+//    beyond the score mask.  Q is loaded once a work tile; K and V tiles of
+//    64 keys go through a ring of 4 stages (3 at hd 128), each with a
+//    K-full, a V-full and an empty mbarrier.  The maps are encoded on the host once per call and
+//    passed as __grid_constant__ parameters.  cuTensorMapEncodeTiled is a
+//    driver-API function; it is looked up with cudaGetDriverEntryPoint, so
+//    the library links the runtime alone, and a driver without it makes
+//    the entry point return kNoDriverEntry, which the wrapper raises.
+//  * S = Q K^T: wgmma m64n64k16, bf16 in, f32 accumulate, both operands
+//    from shared memory (K [keys, hd] is K-major, as wgmma wants B).
+//  * The softmax runs on the accumulator fragments in registers: row max
+//    and row sum over the four threads of a quad, exp2f with log2 e folded
+//    in, the correction applied to the O accumulator.
+//  * O += P V with P as two bf16 terms, P_hi = bf16(P), P_lo = bf16(P -
+//    P_hi), each a wgmma with A from registers (the S accumulator's
+//    fragment layout is the A-fragment layout) and B the V tile, MN-major
+//    (the descriptor's transpose bit).  The Pallas kernel multiplies P in
+//    f32 (kernel.py:38-40); one bf16 rounding of P (2^-9 relative a term)
+//    would move outputs near zero by more than the 2e-5 they are allowed,
+//    two terms keep P to about 2^-17.  It costs 1.5x the FLOPs of one bf16
+//    pass; the bound counts the function's FLOPs.
+//  * Epilogue: divide by max(l, 1e-30), round once to bf16, store the rows
+//    < S.
+//
+// float32 (flash_fwd_kernel): CUDA cores, by dtype.  For f32 inputs wgmma
+// computes in TF32, about 3 decimal digits, which breaks the f32 checks
+// (2e-5 against the plain version, 1e-4 on the f32 model's hidden states),
+// so f32 keeps the products in f32 on the CUDA cores out of shared memory.
+// This is dispatch by dtype, not a fallback: a bf16 launch that is refused
+// or fails is returned as an error, never retried on this kernel.
+#include <cuda.h>   // CUtensorMap and its enums (types only; see encode_tiled)
+
 #include "common.cuh"
+
+// ------------------------------------------------------------------ f32
 
 namespace {
 
@@ -198,6 +248,462 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace
 
+// ------------------------------------------------------------------ bf16
+namespace wg {
+
+constexpr int kRows = 64;            // q rows per consumer warpgroup (wgmma M)
+constexpr int kBQ = 2 * kRows;       // q rows per block
+constexpr int kBK = 64;              // keys per K/V tile
+constexpr int kThreads = 384;        // consumer warpgroups 0-1, producer warpgroup 2
+constexpr int kBox = 64 * 64 * 2;    // one TMA box: 64 rows of 64 bf16 (one 128-byte swizzle span)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, in 1024-byte aligned boxes (the 128-byte swizzle repeats
+// every 8 rows of 128 bytes), then the mbarriers.  Q has two slots, so the
+// next work tile's Q lands while this one's is read.
+template <int HD>
+struct Smem {
+  static constexpr int NH = HD / 64;                      // boxes per row of a head
+  static constexpr int stages = HD == 64 ? 4 : 3;         // K/V ring depth
+  static constexpr int q_off = 0;                         // Q [slot][warpgroup][NH]
+  static constexpr int k_off = q_off + 2 * 2 * NH * kBox; // K [stage][NH]
+  static constexpr int v_off = k_off + stages * NH * kBox;    // V [stage][NH]
+  static constexpr int bar_off = v_off + stages * NH * kBox;
+  // Q-full[2], Q-empty[2], then K-full, V-full, KV-empty [stages] each
+  static constexpr int n_bars = 4 + 3 * stages;
+  static constexpr int bytes = bar_off + 8 * n_bars;
+  static constexpr int alloc = bytes + 1024;              // room to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+// arrive once and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// wait for the completion of the phase of parity `parity`; a wait that
+// lasts two seconds (a load that never lands) traps instead of hanging the
+// card, and the launch's error reaches the caller
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t n = 1;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if ((n & 1023) == 0) {
+      uint64_t t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      if (t0 == 0) t0 = t;
+      else if (t - t0 > 2000000000ull) __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptors for a 128-byte-swizzled box (layout type
+// 1 in bits 62-63, start address >> 4 in bits 0-13).  K-major (Q, K): the
+// 16-deep K-slice lies inside one 128-byte row, so only the 8-row-group
+// stride (1024 bytes, bits 32-45) is read and the leading offset is 1; a
+// K-slice starts 32 bytes further.  MN-major (V as B of P V): one wgmma
+// covers 64 hd columns, one swizzle span, and 16 keys, two 8-row groups
+// 1024 bytes apart; both offsets are 1024 bytes; a K-slice starts 2048
+// bytes further.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{64} << 32) | (uint64_t{1} << 62);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{64} << 16) |
+         (uint64_t{64} << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define RK_ACC32(d)                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+  "+f"(d[31])
+#define RK_D32                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (+)= A B, m64n64k16, A and B from shared memory, both K-major;
+// scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RK_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : RK_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A B, m64n64k16, A from registers (4 x bf16x2 a thread), B from
+// shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_bt(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RK_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : RK_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Work tile `item` of n_items = n_qt * H * B, heaviest first: the last
+// q-tiles (the most keys under the causal mask) of every (head, batch), then
+// the q-tiles before them.
+struct Work {
+  int q0, h, b, kvh, n_tiles, n_q;
+  __device__ Work(int item, int n_qt, int S, int Tk, int H, int KV, int B, int causal) {
+    const int per_qt = H * B;
+    q0 = (n_qt - 1 - item / per_qt) * kBQ;
+    h = item % per_qt % H;
+    b = item % per_qt / H;
+    kvh = h / (H / KV);
+    // one past the last key any live row of the tile may see
+    const int kv_end = causal ? min(Tk, min(q0 + kBQ, S) + Tk - S) : Tk;
+    n_tiles = (kv_end + kBK - 1) / kBK;
+    // the second warpgroup's rows may all lie past S (a short prompt): its Q
+    // is then not loaded, and its rows are computed from stale shared memory
+    // and never stored
+    n_q = q0 + kRows < S ? 2 : 1;
+  }
+};
+
+// Accumulator fragment of m64nN (f32), thread `lane` of warp `w` of the
+// warpgroup: d[4j + e] is row 16w + lane/4 + 8*(e>>1), column 8j + 2*(lane%4)
+// + (e&1).  The A fragment of m64k16 for K-slice kk is then
+// {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
+// {d[8kk+6], d[8kk+7]}, each pair packed low column first.
+//
+// Persistent: each block walks work tiles blockIdx.x, blockIdx.x + gridDim.x,
+// ...; the K/V ring and the Q slots run on across work tiles, so the
+// producer loads the next tile's Q and first keys while the consumers finish
+// this one.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                int B, int S, int Tk, int H, int KV, int causal, float scale) {
+  using L = Smem<HD>;
+  constexpr int NH = L::NH;
+  constexpr int ST = L::stages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::bar_off;
+  const auto bar_qfull = [&](int slot) { return bars + 8u * slot; };
+  const auto bar_qempty = [&](int slot) { return bars + 8u * (2 + slot); };
+  const auto bar_kfull = [&](int s) { return bars + 8u * (4 + s); };
+  const auto bar_vfull = [&](int s) { return bars + 8u * (4 + ST + s); };
+  const auto bar_empty = [&](int s) { return bars + 8u * (4 + 2 * ST + s); };
+
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int n_items = n_qt * H * B;
+  const int off = Tk - S;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < 2; ++slot) {
+      mbar_init(bar_qfull(slot), 1);
+      mbar_init(bar_qempty(slot), 8);   // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_kfull(s), 1);
+      mbar_init(bar_vfull(s), 1);
+      mbar_init(bar_empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int kv_it = 0;
+      for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
+        const Work w(item, n_qt, S, Tk, H, KV, B, causal);
+        const int slot = it & 1;
+        if (it >= 2) mbar_wait(bar_qempty(slot), ((it >> 1) - 1) & 1);
+        mbar_expect_tx(bar_qfull(slot), w.n_q * NH * kBox);
+        for (int g = 0; g < w.n_q; ++g)
+          for (int hh = 0; hh < NH; ++hh)
+            tma_load_4d(base + L::q_off + ((slot * 2 + g) * NH + hh) * kBox, &tm_q,
+                        bar_qfull(slot), hh * 64, w.h, w.q0 + g * kRows, w.b);
+        for (int jt = 0; jt < w.n_tiles; ++jt, ++kv_it) {
+          const int s = kv_it % ST;
+          if (kv_it >= ST) mbar_wait(bar_empty(s), ((kv_it / ST) - 1) & 1);
+          mbar_expect_tx(bar_kfull(s), NH * kBox);
+          for (int hh = 0; hh < NH; ++hh)
+            tma_load_4d(base + L::k_off + (s * NH + hh) * kBox, &tm_k, bar_kfull(s),
+                        hh * 64, w.kvh, jt * kBK, w.b);
+          mbar_expect_tx(bar_vfull(s), NH * kBox);
+          for (int hh = 0; hh < NH; ++hh)
+            tma_load_4d(base + L::v_off + (s * NH + hh) * kBox, &tm_v, bar_vfull(s),
+                        hh * 64, w.kvh, jt * kBK, w.b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns q rows q0 + 64 wg ... + 63 of a tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int quad_t = lane % 4;
+    int kv_it = 0;
+    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
+      const Work w(item, n_qt, S, Tk, H, KV, B, causal);
+      const int slot = it & 1;
+      const int wrow0 = w.q0 + wg * kRows + warp * 16;   // this warp's first row
+      const int row0 = wrow0 + lane / 4;                 // this thread's rows: row0, row0 + 8
+      const uint32_t q_base = base + L::q_off + (slot * 2 + wg) * NH * kBox;
+
+      float oacc[NH][32];
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) oacc[hh][i] = 0.f;
+      float m_r[2] = {rk::kNegInf, rk::kNegInf};
+      float l_r[2] = {0.f, 0.f};
+
+      mbar_wait(bar_qfull(slot), (it >> 1) & 1);
+      for (int jt = 0; jt < w.n_tiles; ++jt, ++kv_it) {
+        const int s = kv_it % ST;
+        const uint32_t ph = (kv_it / ST) & 1;
+        const int k0 = jt * kBK;
+
+        // S = Q K^T
+        float sacc[32];
+        mbar_wait(bar_kfull(s), ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t slice = (kk / 4) * kBox + (kk % 4) * 32;
+          wgmma_ss(sacc, desc_kmajor(q_base + slice),
+                   desc_kmajor(base + L::k_off + s * NH * kBox + slice), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(sacc);
+
+        // scale and mask; only tiles on the diagonal or the ragged end mask
+        const bool edge = k0 + kBK > Tk || (causal && k0 + kBK - 1 > wrow0 + off);
+        float mx[2] = {rk::kNegInf, rk::kNegInf};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float x = sacc[i] * scale;
+          if (edge) {
+            const int row = row0 + 8 * ((i >> 1) & 1);
+            const int col = k0 + 8 * (i >> 2) + 2 * quad_t + (i & 1);
+            if (col >= Tk || (causal && col > row + off)) x = rk::kNegInf;
+          }
+          sacc[i] = x;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+        }
+        float corr[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m_r[r], mx[r]);
+          corr[r] = exp2f((m_r[r] - m_new) * kLog2e);
+          m_r[r] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          const float p = exp2f((sacc[i] - m_r[r]) * kLog2e);
+          sacc[i] = p;
+          rsum[r] += p;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + rsum[r];
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) oacc[hh][i] *= corr[(i >> 1) & 1];
+
+        // P = P_hi + P_lo, both bf16, as A fragments of the four K-slices
+        uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float x0 = sacc[8 * kk + 2 * r], x1 = sacc[8 * kk + 2 * r + 1];
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+            const float2 hf = __bfloat1622float2(hi);
+            p_hi[kk][r] = bf16x2_bits(hi);
+            p_lo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+          }
+
+        // O += P_hi V + P_lo V
+        mbar_wait(bar_vfull(s), ph);
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh) reg_fence(oacc[hh]);
+        wgmma_fence();
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t dv =
+                desc_mnmajor(base + L::v_off + (s * NH + hh) * kBox + kk * 2048);
+            wgmma_rs_bt(oacc[hh], p_hi[kk], dv);
+            wgmma_rs_bt(oacc[hh], p_lo[kk], dv);
+          }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh) reg_fence(oacc[hh]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty(s));
+      }
+      // this tile's Q is read: its slot may take the tile after next
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_qempty(slot));
+
+      // epilogue: o = O / l, rows < S, one bf16 rounding
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+        l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+        l_r[r] = fmaxf(l_r[r], 1e-30f);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < S) {
+          __nv_bfloat16* orow = o + ((static_cast<size_t>(w.b) * S + row) * H + w.h) * HD;
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int col = hh * 64 + 8 * j + 2 * quad_t;
+              *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+                  oacc[hh][4 * j + 2 * r] / l_r[r], oacc[hh][4 * j + 2 * r + 1] / l_r[r]);
+            }
+        }
+      }
+    }
+  }
+}
+
+#undef RK_ACC32
+#undef RK_D32
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) !=
+            cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a 4-D map over bf16 [B, L, NHEADS, HD] (contiguous), boxes of 64 rows of
+// 64 columns of one head, 128-byte swizzle, zero fill out of bounds
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int L, int nheads,
+            int HD) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(nheads),
+                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(HD) * 2;
+  const cuuint64_t strides[3] = {row, row * nheads, row * nheads * L};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
+           int KV, int causal, cudaStream_t stream) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return rk::kNoDriverEntry;
+  CUtensorMap tq, tk, tv;
+  if (!encode(fn, &tq, q, B, S, H, HD) || !encode(fn, &tk, k, B, Tk, KV, HD) ||
+      !encode(fn, &tv, v, B, Tk, KV, HD))
+    return rk::kTensorMap;
+  auto kern = flash_fwd_wgmma<HD>;
+  constexpr size_t smem = Smem<HD>::alloc;
+  cudaError_t err = rk::allow_smem(kern, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_items = static_cast<long long>((S + kBQ - 1) / kBQ) * H * B;
+  if (n_items > (1ll << 30)) return rk::kBadShape;
+  int dev = 0, n_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one block an SM (the registers allow no more), each walking work tiles
+  const int grid = static_cast<int>(n_items < n_sm ? n_items : n_sm);
+  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S,
+                                         Tk, H, KV, causal,
+                                         1.0f / sqrtf(static_cast<float>(HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int T, int H, int KV, int hd, int causal,
                                    int dtype, void* stream) {
@@ -209,8 +715,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return rk::kBadHeadDim;
   }
   if (dtype == rk::kBF16) {
-    if (hd == 64) return launch<__nv_bfloat16, 64>(q, k, v, o, B, S, T, H, KV, causal, st);
-    if (hd == 128) return launch<__nv_bfloat16, 128>(q, k, v, o, B, S, T, H, KV, causal, st);
+    if (hd == 64) return wg::launch<64>(q, k, v, o, B, S, T, H, KV, causal, st);
+    if (hd == 128) return wg::launch<128>(q, k, v, o, B, S, T, H, KV, causal, st);
     return rk::kBadHeadDim;
   }
   return rk::kBadDType;

@@ -9,6 +9,13 @@ A CPU tensor goes to the plain version in :mod:`.ref` (transposed to its
 head-major layout and back).  A CUDA tensor goes to the kernel in
 ``csrc/flash_attention.cu`` / ``csrc/decode_attention.cu``, or the wrapper
 raises: there is no fallback.  Each launch adds one to :data:`LAUNCHES`.
+
+Decode attention splits the cache's keys across blocks
+(:func:`decode_splits`, from the capacity T alone, never from ``lengths``)
+and merges the splits in the same launch; its scratch comes from
+``torch.empty`` and its ticket counters from a buffer per (device, stream)
+zeroed once, at first use (:func:`_tickets`), so a call is one launch and
+calls on two streams never share a counter.
 """
 from __future__ import annotations
 
@@ -20,6 +27,25 @@ from repro_torch.kernels.flash_attention import ref
 #: kernel launches since the last reset (see repro_torch.kernels)
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
 HEAD_DIMS = (64, 128)
+#: keys per split of decode attention: one tile (kBK) of decode_attention.cu
+SPLIT_KEYS = 64
+#: ticket counters of the decode merge per (device, stream), zero between calls
+_TICKETS = {}
+
+
+def decode_splits(T: int) -> int:
+    """Blocks the decode kernel splits a T-long cache row's keys across."""
+    return max(1, -(-T // SPLIT_KEYS))
+
+
+def _tickets(device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 ticket counters for launches on ``stream`` of
+    ``device``, zeroed when first allocated; the kernel's merging block
+    resets each counter it used."""
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = _TICKETS[device, stream] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -74,11 +100,19 @@ def decode_attention(q, k, v, lengths):
                   "lengths must be int32 [B]")
     lengths = lengths.contiguous()
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    n_split = decode_splits(T)
+    stream = build.stream(q)
+    part = tickets = None
+    if n_split > 1:
+        part = torch.empty((B, H, n_split, hd + 2), dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, stream, B * KV)
     ks, vs = k.stride(), v.stride()
     lib = build.library()
     build.check(lib.decode_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), B, T, H, KV, hd, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-        build.dtype_code(q), build.stream(q)), "decode_attention")
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        B, T, H, KV, hd, n_split, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+        build.dtype_code(q), stream), "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return o
