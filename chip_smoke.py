@@ -11,7 +11,8 @@ order; any failure exits non-zero:
 1. device: the card's name, ``nvidia-smi``'s name and power limit, the torch
    and CUDA versions;
 2. build: the port's CUDA kernels, compiled by ``nvcc`` from
-   ``src/repro_torch/kernels/csrc`` into ``build/``;
+   ``src/repro_torch/kernels/csrc`` into ``build/``, with no wgmma
+   serialised by ptxas (warning C7514);
 3. kernel checks: each kernel against its plain PyTorch version on the card
    at the main paths' full-width shapes, in bfloat16 and float32, with the
    edge cases (a ragged prefill tile, T > S prefill, a zero-length decode
@@ -19,7 +20,8 @@ order; any failure exits non-zero:
    splits past every length, vocab ties;
    for the SSM scan both modes, rwkv6-3b's prefill and decode shapes from a
    non-zero state, zamba2-2.7b's Mamba-2 shapes read through stride-0
-   broadcasts, and log_w = -8 everywhere); then each kernel timed with CUDA
+   broadcasts, chunk edges, the served model's weak decay and log_w = -8
+   everywhere); then each kernel timed with CUDA
    events beside its plain version, one library call for the same function
    where there is one, and its bound on the card (attention also at the
    short serving shapes, S 12 and T 29);
@@ -32,8 +34,9 @@ order; any failure exits non-zero:
    and for phase 4's 1000-token batch, which deadline demotion decodes at
    earlier exits;
 6. serve rwkv6-3b: full width and depth in bfloat16, every layer's scan
-   through the SSM scan kernel and every token through the exit head, the
-   counters as in phase 4;
+   through an SSM scan kernel (its 1000-token prefill through the chunked
+   tensor-core kernel, which the per-kernel count shows) and every token
+   through the exit head, the counters as in phase 4;
 7. kernel path against plain path for rwkv6-3b, as phase 5 (the plain
    path is the reference's scan dispatch and the plain exit head), held
    launch by launch: every scan launch and every token of the served float32
@@ -414,11 +417,16 @@ def kernel_checks(torch, timer):
 
 
 def scan_checks(torch, timer, randn):
-    """The SSM scan kernel against its plain version, in both modes, at
+    """The SSM scan kernels against their plain version, in both modes, at
     rwkv6-3b's prefill (S 12, and S 1000, ragged against any power-of-two
     tile) and decode (S 1, from a non-zero state) shapes and zamba2-2.7b's
-    Mamba-2 shapes, and at log_w = -8 everywhere; then timed at rwkv6-3b's
-    S 1000 prefill (the record), S 1 decode and the Mamba-2 shapes."""
+    Mamba-2 shapes (and the Mamba-2 mode with a per-channel decay); at the
+    chunk edges S 16, 17, 64 and 65; with random
+    decay (w near 0.37 on average), the served model's weak decay
+    (log_w = -exp(-6 + 0.5 randn), w near 0.9975, so that the state sums
+    rounding over all 1000 tokens) and log_w = -8 everywhere.  Each case
+    logs the kernel the wrapper chose.  Then timed at rwkv6-3b's S 1000
+    prefill (the record), S 1 decode and the Mamba-2 shapes."""
     import repro_torch.config as C
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssm_scan import ops as ss_ops
@@ -429,21 +437,31 @@ def scan_checks(torch, timer, randn):
     H, hd = rc.num_heads, rc.hd
     Hm, N = M2.n_heads(zc), zc.ssm_state
 
-    def rwkv_inputs(dt, S, strong):
+    def log_decay(decay, *shape):
+        if decay == "strong":
+            return torch.full(shape, -8.0, device="cuda")
+        if decay == "weak":
+            return -torch.exp(randn(*shape, scale=0.5) - 6.0)
+        return -torch.exp(randn(*shape, scale=0.5))
+
+    def rwkv_inputs(dt, S, decay):
         q, k, v = (randn(BATCH, S, H, hd, dtype=dt) for _ in range(3))
-        lw = torch.full((BATCH, S, H, hd), -8.0, device="cuda") if strong \
-            else -torch.exp(randn(BATCH, S, H, hd, scale=0.5))
+        lw = log_decay(decay, BATCH, S, H, hd)
         return q, k, v, lw, randn(BATCH, H, hd, hd, scale=0.1), randn(H, hd, scale=0.1)
 
-    def mamba_inputs(dt, S, strong):
+    def mamba_inputs(dt, S, decay):
         # as mamba2.block builds them: C and B broadcast over the heads, the
         # per-head decay over the state channels (stride-0 views)
         bc, cc = randn(BATCH, S, N, dtype=dt), randn(BATCH, S, N, dtype=dt)
-        lw = torch.full((BATCH, S, Hm), -8.0, device="cuda") if strong \
-            else -torch.exp(randn(BATCH, S, Hm, scale=0.5))
+        lw = log_decay(decay, BATCH, S, Hm)
         return (cc[:, :, None].expand(BATCH, S, Hm, N), bc[:, :, None].expand(BATCH, S, Hm, N),
                 randn(BATCH, S, Hm, M2.DH, dtype=dt), lw[..., None].expand(BATCH, S, Hm, N),
                 randn(BATCH, Hm, N, M2.DH, scale=0.1), None)
+
+    def mamba_channel_inputs(dt, S, decay):
+        # the Mamba-2 mode with a per-channel decay (the RWKV kernel's layout)
+        q, k, v, lw, s0, u = mamba_inputs(dt, S, decay)
+        return q, k, v, lw.contiguous(), s0, u
 
     def bound_of(args, o, s_out, dt):
         q, k, v, lw, s0, u = args
@@ -455,19 +473,34 @@ def scan_checks(torch, timer, randn):
 
     out = None
     for dt in (torch.bfloat16, torch.float32):
-        for label, make, S, strong in (("rwkv", rwkv_inputs, SHORT_PROMPT, False),
-                                       ("rwkv", rwkv_inputs, LONG_PROMPT, False),
-                                       ("rwkv", rwkv_inputs, 1, False),
-                                       ("mamba2", mamba_inputs, LONG_PROMPT, False),
-                                       ("rwkv", rwkv_inputs, LONG_PROMPT, True),
-                                       ("mamba2", mamba_inputs, LONG_PROMPT, True)):
-            args = make(dt, S, strong)
+        for label, make, S, decay in (("rwkv", rwkv_inputs, SHORT_PROMPT, "random"),
+                                      ("rwkv", rwkv_inputs, LONG_PROMPT, "random"),
+                                      ("rwkv", rwkv_inputs, 1, "random"),
+                                      ("mamba2", mamba_inputs, LONG_PROMPT, "random"),
+                                      ("rwkv", rwkv_inputs, LONG_PROMPT, "strong"),
+                                      ("mamba2", mamba_inputs, LONG_PROMPT, "strong"),
+                                      ("rwkv", rwkv_inputs, LONG_PROMPT, "weak"),
+                                      ("mamba2", mamba_inputs, LONG_PROMPT, "weak"),
+                                      ("mamba2 per-channel decay", mamba_channel_inputs,
+                                       LONG_PROMPT, "weak"),
+                                      ("rwkv", rwkv_inputs, 16, "random"),
+                                      ("mamba2", mamba_inputs, 17, "random"),
+                                      ("rwkv", rwkv_inputs, 64, "random"),
+                                      ("rwkv", rwkv_inputs, 65, "weak"),
+                                      ("mamba2", mamba_inputs, 64, "weak"),
+                                      ("mamba2", mamba_inputs, 65, "random")):
+            args = make(dt, S, decay)
             q, k, v, lw, s0, u = args
+            before = dict(ss_ops.LAUNCHES)
             o, s_out = ss_ops.ssm_scan(*args)
             torch.cuda.synchronize()
+            kind = [n for n in ("chunked", "stepped")
+                    if ss_ops.LAUNCHES[f"ssm_scan.{n}"] > before[f"ssm_scan.{n}"]]
+            require(kind == [ss_ops.route(q, v)], f"ssm_scan ran {kind}, "
+                    f"not the routed {ss_ops.route(q, v)}")
             po, ps = ss_ref.ssm_scan(q.float(), k.float(), v.float(), lw, s0, u=u)
             require(torch.isfinite(po).all().item() and torch.isfinite(ps).all().item(),
-                    f"ssm_scan plain version non-finite ({label} S{S} strong {strong})")
+                    f"ssm_scan plain version non-finite ({label} S{S} decay {decay})")
             require(torch.isfinite(o.float()).all().item()
                     and torch.isfinite(s_out).all().item(),
                     f"ssm_scan {label} {dt} S{S}: non-finite kernel output")
@@ -476,14 +509,15 @@ def scan_checks(torch, timer, randn):
             sdiff = (s_out - ps).abs()
             sshare = (sdiff / (SCAN_ATOL + STATE_RTOL * ps.abs())).max().item()
             shape = (f"{label} B{q.shape[0]} S{S} H{q.shape[2]} dk{q.shape[3]} "
-                     f"dv{v.shape[-1]}" + (" log_w -8" if strong else ""))
+                     f"dv{v.shape[-1]}" + {"strong": " log_w -8", "weak": " weak decay",
+                                           "random": ""}[decay])
             e = diff.max().item()
-            log(f"check ssm_scan {dt} {shape}: o max_abs_err {e:.3g}, worst err/allowed "
+            log(f"check ssm_scan {dt} {shape} ({kind[0]}): o max_abs_err {e:.3g}, worst err/allowed "
                 f"{share:.3g} (allowed {SCAN_ATOL} + {ATTN_RTOL[str(dt)]:.4g} |plain f32|); "
                 f"state max_abs_err {sdiff.max().item():.3g}, worst {sshare:.3g}")
             require(share <= 1.0 and sshare <= 1.0,
                     f"ssm_scan {dt} {shape} disagrees: {share} / {sshare} of the allowed error")
-            if dt == torch.bfloat16 and not strong and S != SHORT_PROMPT:
+            if dt == torch.bfloat16 and decay == "random" and S in (1, LONG_PROMPT):
                 t = dict(**timer.kernel(lambda: ss_ops.ssm_scan(*args)),
                          plain_ms=timer.ms(lambda: ss_ref.ssm_scan(*args)),
                          library_ms=None)
@@ -583,6 +617,9 @@ def serve_main_path(torch, arch):
         require(counts[name] > 0, f"serve {arch}: kernel {name} was never launched "
                 "on the main path")
     require(variants > 1, "serve: no request was decoded at a demoted exit")
+    if "ssm_scan" in PATH_KERNELS[arch]:
+        require(counts["ssm_scan.chunked"] > 0, f"serve {arch}: no bf16 prefill ran on the "
+                "chunked scan kernel")
     return params, counts
 
 
@@ -789,6 +826,9 @@ def main() -> int:
     build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds}) -> {build.BUILD_DIR}")
     log(build.build_log)
+    serialised = [line for line in build.build_log.splitlines() if "C7514" in line]
+    log(f"build: {len(serialised)} wgmma serialisation warnings (C7514)")
+    require(not serialised, f"ptxas serialised a kernel's wgmmas: {serialised}")
 
     # -- 3 kernel checks and times
     timer = Timer(torch)

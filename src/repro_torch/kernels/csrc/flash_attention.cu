@@ -68,9 +68,7 @@
 // so f32 keeps the products in f32 on the CUDA cores out of shared memory.
 // This is dispatch by dtype, not a fallback: a bf16 launch that is refused
 // or fails is returned as an error, never retried on this kernel.
-#include <cuda.h>   // CUtensorMap and its enums (types only; see encode_tiled)
-
-#include "common.cuh"
+#include "hopper.cuh"   // mbarriers, TMA, wgmma, tensor maps (shared with ssm_scan.cu)
 
 // ------------------------------------------------------------------ f32
 
@@ -251,6 +249,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 // ------------------------------------------------------------------ bf16
 namespace wg {
 
+using namespace rk;   // the Hopper helpers of hopper.cuh
+
 constexpr int kRows = 64;            // q rows per consumer warpgroup (wgmma M)
 constexpr int kBQ = 2 * kRows;       // q rows per block
 constexpr int kBK = 64;              // keys per K/V tile
@@ -274,128 +274,6 @@ struct Smem {
   static constexpr int bytes = bar_off + 8 * n_bars;
   static constexpr int alloc = bytes + 1024;              // room to align the base
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-// arrive once and add `bytes` to the transaction count the phase waits for
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// wait for the completion of the phase of parity `parity`; a wait that
-// lasts two seconds (a load that never lands) traps instead of hanging the
-// card, and the launch's error reaches the caller
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (uint32_t n = 1;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if ((n & 1023) == 0) {
-      uint64_t t;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-      if (t0 == 0) t0 = t;
-      else if (t - t0 > 2000000000ull) __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptors for a 128-byte-swizzled box (layout type
-// 1 in bits 62-63, start address >> 4 in bits 0-13).  K-major (Q, K): the
-// 16-deep K-slice lies inside one 128-byte row, so only the 8-row-group
-// stride (1024 bytes, bits 32-45) is read and the leading offset is 1; a
-// K-slice starts 32 bytes further.  MN-major (V as B of P V): one wgmma
-// covers 64 hd columns, one swizzle span, and 16 keys, two 8-row groups
-// 1024 bytes apart; both offsets are 1024 bytes; a K-slice starts 2048
-// bytes further.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
-         (uint64_t{64} << 32) | (uint64_t{1} << 62);
-}
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{64} << 16) |
-         (uint64_t{64} << 32) | (uint64_t{1} << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define RK_ACC32(d)                                                                   \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
-  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
-  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
-  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
-  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
-  "+f"(d[31])
-#define RK_D32                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (+)= A B, m64n64k16, A and B from shared memory, both K-major;
-// scale_d == 0 overwrites d
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RK_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : RK_ACC32(d)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d += A B, m64n64k16, A from registers (4 x bf16x2 a thread), B from
-// shared memory, MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_bt(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RK_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : RK_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
 
 // Work tile `item` of n_items = n_qt * H * B, heaviest first: the last
 // q-tiles (the most keys under the causal mask) of every (head, batch), then
@@ -634,44 +512,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
-}
-
-#undef RK_ACC32
-#undef RK_D32
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) !=
-            cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a 4-D map over bf16 [B, L, NHEADS, HD] (contiguous), boxes of 64 rows of
-// 64 columns of one head, 128-byte swizzle, zero fill out of bounds
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int L, int nheads,
-            int HD) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(nheads),
-                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(HD) * 2;
-  const cuuint64_t strides[3] = {row, row * nheads, row * nheads * L};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``."""
+"""The PyTorch port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not the port's timing tools (``tools/*_timing.py``)
+import JAX or anything of the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,8 @@ PKG = ROOT / "src" / "repro_torch"
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py"))
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*_timing.py")))
 
 
 def _imported_names(path: Path):
