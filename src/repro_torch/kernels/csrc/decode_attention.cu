@@ -39,6 +39,11 @@
 //  * The tile's softmax and the merge in f32 for both dtypes, with the
 //    finite -1e30 mask; the tile is read with 16-byte loads, several in
 //    flight per thread.
+//  * Head dims 64, 80 and 128.  Lane l of a head's warp owns the output
+//    columns l, l + 32, ... below HD: ceil(HD / 32) of them, the last one
+//    guarded when 32 does not divide HD (zamba2's 80: columns 64-79 on
+//    lanes 0-15 only).  A key row is HD / N 16-byte loads (10 in bf16, 20
+//    in f32 at hd 80), so HD only has to be a multiple of 8.
 #include "common.cuh"
 
 namespace {
@@ -65,9 +70,11 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
                                    long long k_sb, long long k_st, long long k_sh,
                                    long long v_sb, long long v_st, long long v_sh,
                                    float scale) {
-  static_assert(HD % 32 == 0, "head dim");
+  static_assert(HD % 8 == 0, "head dim: whole 16-byte loads and 4-wide dot products");
   constexpr int LD = HD + 1;
-  constexpr int DPL = HD / 32;          // output columns per lane
+  constexpr int DPL = (HD + 31) / 32;   // output columns per lane, the last guarded
+  // lane `lane` owns column lane + 32 i while it lies below HD
+  const auto owns = [](int d) { return HD % 32 == 0 || d < HD; };
   constexpr int N = rk::Vec<T>::N;      // elements per 16-byte load
   constexpr int VPR = HD / N;           // 16-byte loads per key row
   constexpr int PW = HD + 2;            // floats per partial
@@ -159,6 +166,7 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
+      if (!owns(d)) continue;
       float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < kBK; j += 4)
@@ -172,7 +180,8 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
   if (n_split == 1) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) ob[lane + 32 * i] = rk::from_f32<T>(acc[i] * inv);
+    for (int i = 0; i < DPL; ++i)
+      if (owns(lane + 32 * i)) ob[lane + 32 * i] = rk::from_f32<T>(acc[i] * inv);
     return;
   }
 
@@ -180,7 +189,8 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
   float* ph = part + (static_cast<size_t>(b) * H + h) * n_split * PW;
   float* mine = ph + split * PW;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) mine[2 + lane + 32 * i] = acc[i];
+  for (int i = 0; i < DPL; ++i)
+    if (owns(lane + 32 * i)) mine[2 + lane + 32 * i] = acc[i];
   if (lane == 0) {
     mine[0] = m;
     mine[1] = l;
@@ -205,11 +215,13 @@ __global__ void decode_attn_kernel(const T* __restrict__ q, const T* __restrict_
     const float w = expf(__ldcg(ps) - mx);
     L += __ldcg(ps + 1) * w;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] += __ldcg(ps + 2 + lane + 32 * i) * w;
+    for (int i = 0; i < DPL; ++i)
+      if (owns(lane + 32 * i)) acc[i] += __ldcg(ps + 2 + lane + 32 * i) * w;
   }
   const float inv = 1.f / fmaxf(L, 1e-30f);
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) ob[lane + 32 * i] = rk::from_f32<T>(acc[i] * inv);
+  for (int i = 0; i < DPL; ++i)
+    if (owns(lane + 32 * i)) ob[lane + 32 * i] = rk::from_f32<T>(acc[i] * inv);
   if (threadIdx.x == 0) *ticket = 0;   // ready for the next call
 }
 
@@ -253,11 +265,13 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                     v_sb, v_st, v_sh, st)
   if (dtype == rk::kF32) {
     if (hd == 64) return RK_DECODE(float, 64);
+    if (hd == 80) return RK_DECODE(float, 80);
     if (hd == 128) return RK_DECODE(float, 128);
     return rk::kBadHeadDim;
   }
   if (dtype == rk::kBF16) {
     if (hd == 64) return RK_DECODE(__nv_bfloat16, 64);
+    if (hd == 80) return RK_DECODE(__nv_bfloat16, 80);
     if (hd == 128) return RK_DECODE(__nv_bfloat16, 128);
     return rk::kBadHeadDim;
   }

@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
                  int H, int KV, int causal, float scale) {
-  static_assert(HD % 32 == 0 && (kThreads % HD == 0 || HD % kThreads == 0), "head dim");
+  static_assert(HD % 16 == 0 && kBQ * HD % kThreads == 0, "head dim");
   constexpr int LD = HD + 1;           // padded rows: column reads hit distinct banks
   constexpr int LP = kBK + 1;
   extern __shared__ float smem[];
@@ -133,11 +133,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sL[r] = 0.f;
   }
 
-  // Each thread owns output column d of rows r0, r0 + RSTEP, ...
-  constexpr int RSTEP = kThreads / HD > 0 ? kThreads / HD : 1;
+  // Each thread owns the accumulator entries e = tid + i * kThreads of the
+  // [kBQ][HD] tile, row e / HD and column e % HD.  Where HD divides
+  // kThreads or kThreads divides HD (64, 128) that is one column of rows
+  // r0, r0 + kThreads / HD, ...; at HD 80 a thread's column moves with i.
   constexpr int RPT = kBQ * HD / kThreads;   // accumulator entries per thread
-  const int d_own = tid % HD;
-  const int r_own = tid / HD;
+  const auto own_row = [tid](int i) { return (tid + i * kThreads) / HD; };
+  const auto own_col = [tid](int i) { return (tid + i * kThreads) % HD; };
   float acc[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
@@ -209,11 +211,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // acc = acc * corr + p v
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int r = r_own + i * RSTEP;
+      const int r = own_row(i), d = own_col(i);
       const float* pr = sP + r * LP;
       float s = 0.f;
 #pragma unroll 16
-      for (int j = 0; j < kBK; ++j) s = fmaf(pr[j], sV[j * HD + d_own], s);
+      for (int j = 0; j < kBK; ++j) s = fmaf(pr[j], sV[j * HD + d], s);
       acc[i] = acc[i] * sC[r] + s;
     }
     __syncthreads();
@@ -221,11 +223,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    const int r = r_own + i * RSTEP;
+    const int r = own_row(i);
     const int qi = q0 + r;
     if (qi < S) {
       const float l = fmaxf(sL[r], 1e-30f);
-      o[((static_cast<size_t>(b) * S + qi) * H + h) * HD + d_own] = rk::from_f32<T>(acc[i] / l);
+      o[((static_cast<size_t>(b) * S + qi) * H + h) * HD + own_col(i)] =
+          rk::from_f32<T>(acc[i] / l);
     }
   }
 }
@@ -263,8 +266,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // next work tile's Q lands while this one's is read.
 template <int HD>
 struct Smem {
-  static constexpr int NH = HD / 64;                      // boxes per row of a head
-  static constexpr int stages = HD == 64 ? 4 : 3;         // K/V ring depth
+  static constexpr int NH = (HD + 63) / 64;               // boxes per row of a head
+  static constexpr int stages = NH == 1 ? 4 : 3;          // K/V ring depth
   static constexpr int q_off = 0;                         // Q [slot][warpgroup][NH]
   static constexpr int k_off = q_off + 2 * 2 * NH * kBox; // K [stage][NH]
   static constexpr int v_off = k_off + stages * NH * kBox;    // V [stage][NH]
@@ -306,6 +309,15 @@ struct Work {
 // ...; the K/V ring and the Q slots run on across work tiles, so the
 // producer loads the next tile's Q and first keys while the consumers finish
 // this one.
+//
+// HD is the true head dim; a head row is NH = ceil(HD / 64) boxes of 64
+// columns.  At HD 80 (zamba2) that is the hd-128 layout on tensor maps whose
+// innermost dimension is 80: TMA fills columns 80-127 of the second box
+// with zeros (the map's dims[0] keeps the next head's columns out, and the
+// transaction count is still the whole box).  Q K^T then runs HD / 16 = 5
+// K-slices, none over the zero columns; P V runs both 64-column N-halves,
+// the second's columns 16-63 coming out zero and never stored.  Scores are
+// scaled by 1 / sqrt(HD) and rows are HD apart in o.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -403,6 +415,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         float sacc[32];
         mbar_wait(bar_kfull(s), ph);
         wgmma_fence();
+        static_assert(HD % 16 == 0, "K-slices of 16 columns");
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t slice = (kk / 4) * kBox + (kk % 4) * 32;
@@ -504,7 +517,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
           for (int hh = 0; hh < NH; ++hh)
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-              const int col = hh * 64 + 8 * j + 2 * quad_t;
+              const int col = hh * 64 + 8 * j + 2 * quad_t;   // even, as HD: a pair is in or out
+              if (HD % 64 != 0 && col >= HD) continue;
               *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
                   oacc[hh][4 * j + 2 * r] / l_r[r], oacc[hh][4 * j + 2 * r + 1] / l_r[r]);
             }
@@ -551,11 +565,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rk::kF32) {
     if (hd == 64) return launch<float, 64>(q, k, v, o, B, S, T, H, KV, causal, st);
+    if (hd == 80) return launch<float, 80>(q, k, v, o, B, S, T, H, KV, causal, st);
     if (hd == 128) return launch<float, 128>(q, k, v, o, B, S, T, H, KV, causal, st);
     return rk::kBadHeadDim;
   }
   if (dtype == rk::kBF16) {
     if (hd == 64) return wg::launch<64>(q, k, v, o, B, S, T, H, KV, causal, st);
+    if (hd == 80) return wg::launch<80>(q, k, v, o, B, S, T, H, KV, causal, st);
     if (hd == 128) return wg::launch<128>(q, k, v, o, B, S, T, H, KV, causal, st);
     return rk::kBadHeadDim;
   }

@@ -10,6 +10,13 @@ head-major layout and back).  A CUDA tensor goes to the kernel in
 ``csrc/flash_attention.cu`` / ``csrc/decode_attention.cu``, or the wrapper
 raises: there is no fallback.  Each launch adds one to :data:`LAUNCHES`.
 
+Head dims are :data:`HEAD_DIMS`; both kernels are instantiated for each
+(64 and 128 for the dense models, 80 for zamba2's shared attention), and any
+other head dim raises.  The bf16 prefill reads q, k and v through TMA
+tensor maps, whose strides must be whole 16 bytes: a row of a head is
+``hd * 2`` bytes (160 at hd 80) and the sequence stride ``hd * 2 * H``, which
+:func:`build.require_aligned` checks with the base address.
+
 Decode attention splits the cache's keys across blocks
 (:func:`decode_splits`, from the capacity T alone, never from ``lengths``)
 and merges the splits in the same launch; its scratch comes from
@@ -24,9 +31,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
+HEAD_DIMS = (64, 80, 128)
 #: kernel launches since the last reset (see repro_torch.kernels)
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
-HEAD_DIMS = (64, 128)
 #: keys per split of decode attention: one tile (kBK) of decode_attention.cu
 SPLIT_KEYS = 64
 #: ticket counters of the decode merge per (device, stream), zero between calls

@@ -9,7 +9,8 @@ reference's (``src/repro/launch/serve.py``) plus ``--device``.
 On the card (``--device cuda``, the default) it serves the full-size config
 in bfloat16 through the port's kernels; with ``--device cpu`` it serves the
 smoke config in float32 through the kernels' plain versions, as the
-reference does on its CPU.
+reference does on its CPU.  Run on the card so far: ``llama3.2-1b``,
+``rwkv6-3b`` and ``zamba2-2.7b`` (its shared attention at head dim 80).
 """
 from __future__ import annotations
 

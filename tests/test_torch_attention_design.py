@@ -7,10 +7,12 @@ f32 over 64-key tiles, and multiplies P by V as two bf16 terms (P_hi =
 bf16(P), P_lo = bf16(P - P_hi)) accumulated in f32, rounding once at its
 bf16 output.  ``csrc/decode_attention.cu`` splits a cache row's keys into
 blocks of ``SPLIT_KEYS``, each leaving a partial (m, l, acc), and merges the
-partials.  The emulations below repeat that arithmetic in torch, so that the
-designs are held to the tolerances ``chip_smoke.py`` holds the kernels to on
-the card: 2e-5 + |plain| / 128 a bf16 output (the f32 attention tolerance
-plus one bf16 ulp), 2e-5 in f32.
+partials.  At head dim 80 the bf16 kernel runs its hd-128 layout on columns
+that TMA fills with zeros past 80, scaled by 1 / sqrt(80), and the decode
+kernel guards each lane's last column.  The emulations below repeat that
+arithmetic in torch, so that the designs are held to the tolerances
+``chip_smoke.py`` holds the kernels to on the card: 2e-5 + |plain| / 128 a
+bf16 output (the f32 attention tolerance plus one bf16 ulp), 2e-5 in f32.
 """
 import math
 import re
@@ -51,15 +53,16 @@ def _share(got, plain, rtol):
 
 
 # ------------------------------------------------------------ flash, bf16
-def emulate_flash_bf16(q, k, v, *, causal=True, split_p=True):
+def emulate_flash_bf16(q, k, v, *, causal=True, split_p=True, scale=None):
     """The wgmma kernel's arithmetic: q [B, H, S, hd], k/v [B, KV, T, hd]
-    holding bf16 values in f32.  Returns the bf16 output widened to f32."""
+    holding bf16 values in f32, scores scaled by ``scale`` (1 / sqrt(hd)
+    when None).  Returns the bf16 output widened to f32."""
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     G = H // KV
     k = k.repeat_interleave(G, dim=1)
     v = v.repeat_interleave(G, dim=1)
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     rows = torch.arange(S)[:, None]
     m = torch.full((B, H, S, 1), NEG_INF)
     l = torch.zeros((B, H, S, 1))
@@ -106,6 +109,25 @@ def test_flash_bf16_single_rounding_of_p_takes_more_of_the_allowance():
     split = _share(emulate_flash_bf16(q, k, v), plain, BF16_RTOL)
     single = _share(emulate_flash_bf16(q, k, v, split_p=False), plain, BF16_RTOL)
     assert split <= 1.0 < single
+
+
+@pytest.mark.parametrize("S,T", [(1000, 1000), (77, 77), (100, 300)])
+def test_flash_bf16_hd80_padded_design(S, T):
+    """Head dim 80 runs the hd-128 layout: TMA fills columns 80-127 of each
+    row's second box with zeros, the scores are scaled by 1 / sqrt(80) and
+    only columns < 80 are stored.  On those inputs the kernel's arithmetic
+    gives the hd-80 output exactly (the zero columns add exact zeros to
+    Q K^T, and P V's extra columns are never read), within 2e-5 +
+    |plain| / 128 of the f32 oracle."""
+    hd, pad = 80, 128
+    q, k, v = (_bf16(a) for a in _rand(S + T, (1, 4, S, hd), (1, 2, T, hd), (1, 2, T, hd)))
+    q_p, k_p, v_p = (torch.nn.functional.pad(x, (0, pad - hd)) for x in (q, k, v))
+    padded = emulate_flash_bf16(q_p, k_p, v_p, scale=1.0 / math.sqrt(hd))
+    assert torch.equal(padded[..., hd:], torch.zeros_like(padded[..., hd:]))
+    got = padded[..., :hd]
+    assert torch.equal(got, emulate_flash_bf16(q, k, v))
+    plain = _oracle(ref_fa.attention, q, k, v, causal=True)
+    assert _share(got, plain, BF16_RTOL) <= 1.0
 
 
 # ------------------------------------------------------------ decode split-K
@@ -170,6 +192,27 @@ def test_decode_split_merge_matches_the_oracle(T, lens):
             assert torch.equal(got[b], torch.zeros_like(got[b]))   # exactly zero
 
 
+@pytest.mark.parametrize("T,lens", [
+    (1017, [1016, 1016, 1016, 1016]),
+    (1017, [64, 65, 1024, 0]),          # on a split boundary, one past it, past T, zero
+    (29, [28, 0, 5, 40]),               # one split: written directly
+])
+def test_decode_split_merge_at_hd80_matches_the_oracle(T, lens):
+    """zamba2's head dim 80 (G = 1, as its 32/32 heads): the same split and
+    merge, each lane's last column guarded in the kernel, against the
+    oracle at 2e-5; a zero-length row is exactly zero."""
+    B, H, KV, hd = 4, 4, 4, 80
+    q, k, v = (torch.from_numpy(a) for a in _rand(T + hd, (B, H, 1, hd), (B, KV, T, hd),
+                                                   (B, KV, T, hd)))
+    lengths = np.asarray(lens, np.int32)
+    got = emulate_decode_split(q, k, v, lengths)
+    plain = _oracle(ref_fa.decode_attention, q, k, v, torch.from_numpy(lengths))
+    assert _share(got, plain, 0.0) <= 1.0
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
 @pytest.mark.parametrize("T,want", [(1, 1), (29, 1), (64, 1), (65, 2), (200, 4),
                                     (1017, 16), (1024, 16), (1025, 17)])
 def test_decode_splits_follow_the_capacity_alone(T, want):
@@ -221,6 +264,21 @@ def ctypes_kind(param):
     if param.startswith("long long"):
         return ctypes.c_longlong
     return ctypes.c_int
+
+
+@pytest.mark.parametrize("source,entry", [("flash_attention.cu", "flash_attention_fwd"),
+                                          ("decode_attention.cu", "decode_attention_fwd")])
+def test_every_head_dim_is_dispatched_in_both_dtypes(source, entry):
+    """Each head dim the wrapper lets through (HEAD_DIMS) has a branch in
+    the entry point's f32 and bf16 dispatch, and no other head dim has one:
+    the wrapper's check and the kernels' instantiations agree."""
+    src = (build.CSRC / source).read_text()
+    body = src[src.index(f'extern "C" int {entry}('):]
+    for dtype in ("kF32", "kBF16"):
+        branch = re.search(r"if \(dtype == rk::%s\) \{(.*?)return rk::kBadHeadDim;" % dtype,
+                           body, re.S).group(1)
+        dims = tuple(int(d) for d in re.findall(r"if \(hd == (\d+)\)", branch))
+        assert dims == fa_ops.HEAD_DIMS, (source, dtype, dims)
 
 
 def test_every_error_code_has_a_message():

@@ -4,7 +4,12 @@ package's on the reference's own parameters (carried over by
 prefill hidden states and every state leaf, per-exit decode and greedy
 token streams.  Both ``impl`` values run: ``"kernel"`` reaches the scan
 kernel's plain version (and the attention kernels' plain versions) on the
-CPU, ``"dense"`` the reference's dense paths."""
+CPU, ``"dense"`` the reference's dense paths.  zamba2-2.7b also runs at its
+real head dim 80 (``"zamba2-2.7b-hd80"``: the smoke config with
+``head_dim=80`` in both packages, where the smoke configs use 16), and its
+prefill also against the reference through its Pallas flash kernel, in
+interpret mode."""
+import dataclasses
 import logging
 
 import jax
@@ -23,7 +28,9 @@ from repro_torch.models import Model
 from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.convert import params_from_numpy
 
-ARCHS = ("rwkv6-3b", "zamba2-2.7b")
+#: smoke configs; "-hd80" sets head_dim=80 in both packages
+ARCHS = ("rwkv6-3b", "zamba2-2.7b", "zamba2-2.7b-hd80")
+HYBRIDS = ("zamba2-2.7b", "zamba2-2.7b-hd80")
 TOL = 2e-4           # the reference's chunked-against-sequential scan tolerance
 STEPS = 6
 log = logging.getLogger(__name__)
@@ -31,8 +38,11 @@ log = logging.getLogger(__name__)
 
 @pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
-    arch = request.param
+    arch, _, hd = request.param.partition("-hd")
     rcfg, cfg = ref_get_smoke(arch), get_smoke_config(arch)
+    if hd:
+        rcfg = dataclasses.replace(rcfg, head_dim=int(hd))
+        cfg = dataclasses.replace(cfg, head_dim=int(hd))
     rmodel, model = RefModel(rcfg), Model(cfg)
     rparams = rmodel.init_params(jax.random.key(0), dtype=jnp.float32)
     tree = jax.tree_util.tree_map(np.asarray, rparams)
@@ -65,10 +75,12 @@ def _close_caches(cache, rcache, tol=TOL):
         _close(a, b, tol)
 
 
-def _prefill_both(rmodel, rparams, model, params, toks, T, impl="kernel"):
+def _prefill_both(rmodel, rparams, model, params, toks, T, impl="kernel",
+                  attn_impl="auto"):
     B = toks.shape[0]
     rh, rcache = rmodel.prefill(rparams, jnp.asarray(toks),
-                                rmodel.init_cache(B, T, dtype=jnp.float32))
+                                rmodel.init_cache(B, T, dtype=jnp.float32),
+                                attn_impl=attn_impl)
     h, cache = model.prefill(params, torch.from_numpy(toks),
                              model.init_cache(B, T, dtype=torch.float32, device="cpu"),
                              impl=impl)
@@ -133,6 +145,18 @@ def test_prefill_matches(pair, impl, S):
     before = launch_counts()
     rh, rcache, h, cache = _prefill_both(rmodel, rparams, model, params, toks, S + 4, impl)
     assert launch_counts() == before            # the CPU path launches nothing
+    _close(h, rh)
+    _close_caches(cache, rcache)
+
+
+@pytest.mark.parametrize("pair", HYBRIDS, indirect=True)
+def test_prefill_matches_the_pallas_reference(pair):
+    """The reference's shared attention through its Pallas flash kernel
+    (interpret mode, as the JAX package's own kernel tests run it)."""
+    rmodel, rparams, _, model, params = pair
+    toks = _tokens(S=16)
+    rh, rcache, h, cache = _prefill_both(rmodel, rparams, model, params, toks, 20,
+                                         attn_impl="pallas")
     _close(h, rh)
     _close_caches(cache, rcache)
 
