@@ -53,7 +53,29 @@ order; any failure exits non-zero:
    with every scan launch also held as in phase 7.  The plain path never
    reaches the reference's chunked scan (which overflows at strong decay):
    its dispatch takes the sequential scan for 12 and 1000 tokens, neither
-   a multiple of the 16-token chunk, and for decode.
+   a multiple of the 16-token chunk, and for decode;
+10. the fleet with real decode for llama3.2-1b at full width: the arena
+   suite's static scenario (53 requests over 8 devices and 2 edges of 8
+   slots, 64-token prompts) through ``FleetEngine``, first the decode
+   kernel checked and timed at the arena's shape (B 8, T 128, rows of
+   length 1 among them); in bfloat16 through each decode strategy
+   (serial, batched, the slot-resident ``DecodeArena``), each timed over
+   one run after a warm-up run, with its tokens/s, its tokens that
+   agree with serial, its flash and decode launches equal to what the
+   prefills and decode calls give, and (serial) how often the exit-head
+   kernel's token differs from the fleet's model-dtype argmax; in float32
+   serial against arena, held: token streams equal except from a
+   near-tie (MARGIN_TOL), summaries equal, every row outside an arena
+   call's mask bit for bit unchanged, admits equal evicts, no padding, at
+   most one arena variant per model exit;
+11. the same for zamba2-2.7b at full width and depth over a 3 s horizon
+   (serial and arena; the decode kernel at hd 80 and the
+   stepped Mamba-2 scan at B 8 checked and timed at the arena's shapes),
+   which puts the hybrid's shared attention cache, the masked commit of
+   the Mamba-2 state and the stepped scan at B 8 on an arena path; then,
+   for both models, the device idle share of one full-depth arena call
+   at 8 active slots beside a serial step, every wall taken before the
+   first profiler session.
 
 The line before the last is the JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
@@ -898,6 +920,487 @@ def kernel_vs_plain(torch, params_bf16, arch):
                 require(not e > HIDDEN_TOL, f"{label}: last hidden states differ by {e}")
 
 
+# ---------------------------------------------------------------- phases 10-11
+# The fleet with real decode: the arena suite's static scenario
+# (tests/test_arena.py::_static_spec; seed 3, 8 devices, 2 edges of 8 slots,
+# the lte trace, 10 Hz over FLEET_HORIZON seconds, two tenants of 6 and 10
+# new tokens, bandwidth-aware routing, deadline demotion on), with
+# FLEET_PROMPT-token prompts, served at full width through FleetEngine.
+FLEET_PROMPT = 64
+# zamba2-2.7b's horizon is cut to keep the script's time: its serial path
+# takes ~0.06 s a token
+FLEET_HORIZON = {LLAMA: 4.0, ZAMBA: 3.0}
+FLEET_STRATEGIES = {LLAMA: ("serial", "batched", "arena"), ZAMBA: ("serial", "arena")}
+# the arena's slots (the edges' capacity) and its length: prompt + the larger
+# token budget + 1, rounded up to a power of two
+ARENA_SLOTS, ARENA_LEN = 8, 128
+PROFILE_STEPS = 5
+# the kernels a fleet path launches: the fleet takes each token from the
+# model-dtype logits, as the reference's fleet does, not from the exit head
+FLEET_KERNELS = {LLAMA: ("flash_attention", "decode_attention"),
+                 ZAMBA: ("flash_attention", "decode_attention", "ssm_scan")}
+
+
+def fleet_spec(arch):
+    from repro_torch.fleet.workload import TenantClass
+    from repro_torch.sim import (PlannerSpec, RouterSpec, ScenarioSpec,
+                                 TopologySpec, WorkloadSpec)
+    tenants = (TenantClass("interactive", slo_s=1.0, max_new_tokens=6, weight=0.5),
+               TenantClass("standard", slo_s=2.0, max_new_tokens=10, weight=0.5))
+    return ScenarioSpec(
+        name=f"arena-{arch}", seed=3, planner=PlannerSpec(arch=arch),
+        topology=TopologySpec(num_devices=8, num_edges=2, trace="lte",
+                              edge_capacity=ARENA_SLOTS, max_edge_slowdown=2.0),
+        workload=WorkloadSpec(rate_hz=10.0, horizon_s=FLEET_HORIZON[arch],
+                              device_skew=0.5, prompt_len=FLEET_PROMPT,
+                              tenants=tenants),
+        router=RouterSpec(name="bandwidth-aware"))
+
+
+def fleet_engine(arch, model, params, dtype, strategy):
+    """The spec's fleet, planned as ``repro_torch.sim.build_stack`` plans
+    (the full config's graph), on ``model``: a ``FleetEngine`` and its
+    workload (prompts over the full vocab)."""
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.sim.build import build_planner, build_topology, build_workload
+
+    spec = fleet_spec(arch)
+    seeds = spec.seeds()
+    graph, planner = build_planner(model.cfg, spec.planner)
+    topo, _ = build_topology(spec.topology, seeds.topology)
+    workload = build_workload(spec.workload, topo, seeds.workload, model.cfg.vocab_size)
+    engine = FleetEngine(topo, graph, planner, router=spec.router.name, model=model,
+                         params=params, dtype=dtype,
+                         batch_decode=strategy == "batched",
+                         arena_decode=strategy == "arena")
+    return engine, workload
+
+
+def record_calls(model):
+    """Wrap ``model``'s prefill and decode step to log each prefill's prompt
+    length and the segments each decode call runs (what
+    ``expected_launches`` takes)."""
+    calls = {"prompts": [], "steps": []}
+    prefill, decode = model.prefill, model.decode_step
+    n_seg = model.num_segments
+
+    def rec_prefill(params, tokens, cache, **kw):
+        calls["prompts"].append(tokens.shape[1])
+        return prefill(params, tokens, cache, **kw)
+
+    def rec_decode(params, cache, tokens, pos, *, exit_point=None, **kw):
+        calls["steps"].append(n_seg if exit_point is None else exit_point + 1)
+        return decode(params, cache, tokens, pos, exit_point=exit_point, **kw)
+
+    model.prefill, model.decode_step = rec_prefill, rec_decode
+    return calls
+
+
+def record_margins(engine):
+    """Per request, the top-2 logit margin of each token the engine's serial
+    path picks (after its prefill, then after each decode step)."""
+    margins = {}
+    argmax, prefill, decode = engine._argmax, engine._prefill_real, engine._decode_real
+
+    def rec(h):
+        top2 = engine.model.logits(engine.params, h)[:, -1].float().topk(2, dim=-1).values
+        rec.last = (top2[:, 0] - top2[:, 1]).tolist()[0]
+        return argmax(h)
+
+    def pre(req):
+        prefill(req)
+        margins[req.rid] = [rec.last]
+
+    def dec(req):
+        decode(req)
+        margins[req.rid].append(rec.last)
+
+    engine._argmax, engine._prefill_real, engine._decode_real = rec, pre, dec
+    return margins
+
+
+def hold_masked_rows(torch, stepper, held):
+    """Hold every arena call of ``stepper``: the rows outside its mask leave
+    the call bit for bit as they entered it, in every cache leaf."""
+    from repro_torch.serving.arena import tree_leaves
+    inner = stepper.decode_fn_arena
+
+    def fn_for(graph_exit, arena):
+        fn = inner(graph_exit, arena)
+
+        def run(p, cache, tok, pos, mask):
+            keep = ~mask
+            before = [leaf[:, keep].clone() for leaf in tree_leaves(cache)]
+            h, new = fn(p, cache, tok, pos, mask)
+            for b, leaf in zip(before, tree_leaves(new)):
+                require(torch.equal(b, leaf[:, keep]), "arena: a call changed a row "
+                        "outside its mask")
+            held["calls"] += 1
+            held["rows"] += int(keep.sum())
+            held["leaves"] = len(before)
+            return h, new
+        return run
+
+    stepper.decode_fn_arena = fn_for
+
+
+def streams_held(label, want, got, margins):
+    """``got``'s token streams equal ``want``'s request by request, except
+    from a decode step whose own serial token was a near-tie (``margins``:
+    prefill first, so step k's is ``margins[k + 1]``; the prefill is one
+    B=1 path in every strategy and excuses nothing); returns (tokens
+    compared equal, tokens, parted requests)."""
+    equal = total = 0
+    parted = {}
+    require(want.keys() == got.keys(), f"{label}: other requests")
+    for rid, w in want.items():
+        g = got[rid]
+        require(len(g) == len(w), f"{label}: request {rid} got {len(g)} tokens, not {len(w)}")
+        k = next((j for j, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        if k is not None:
+            m = margins[rid][k + 1]
+            parted[rid] = (k, m)
+            require(m < MARGIN_TOL, f"{label}: request {rid} token {k} is {g[k]}, the "
+                    f"serial path's {w[k]} at top-2 margin {m}")
+        equal += len(w) if k is None else k
+        total += len(w)
+    return equal, total, parted
+
+
+def fleet_phase(torch, arch):
+    """Phase 10 (llama3.2-1b) or 11 (zamba2-2.7b): the fleet with real
+    decode at full width, through each decode strategy in bfloat16 (timed
+    after a warm-up run), then serial against arena in float32, held."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.exit_head import ops as eh_ops
+    from repro_torch.models import Model
+
+    cfg = get_config(arch)
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init_params(gen, dtype=torch.bfloat16, device="cuda")
+    calls = record_calls(model)
+    spec = fleet_spec(arch)
+    log(f"fleet {arch}: {cfg.num_layers} layers d {cfg.d_model} heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} of {cfg.hd} vocab {cfg.padded_vocab}, segments "
+        f"{model.segment_lengths()}; {spec.topology.num_devices} devices, "
+        f"{spec.topology.num_edges} edges of {ARENA_SLOTS} slots, {spec.workload.rate_hz} Hz "
+        f"over {spec.workload.horizon_s} s, prompts of {FLEET_PROMPT}, tenants "
+        f"{[(t.name, t.max_new_tokens, t.slo_s) for t in spec.workload.tenants]}")
+    engines, launches = {}, {}
+    head = {"tokens": 0, "differ": 0, "margins": []}
+    for strategy in FLEET_STRATEGIES[arch]:
+        engine, workload = fleet_engine(arch, model, params, torch.bfloat16, strategy)
+        if arch == LLAMA and strategy == "serial":
+            # the exit-head kernel's token against the fleet's model-dtype
+            # argmax, on the same hidden states (the warm-up run only)
+            argmax = engine._argmax
+
+            def both(h, argmax=argmax):
+                tok = argmax(h)
+                kt = eh_ops.exit_confidence(h, params["embed"])["token"][:, -1]
+                diff = (kt != tok).nonzero().flatten().tolist()
+                head["tokens"] += tok.numel()
+                head["differ"] += len(diff)
+                if diff:
+                    top2 = model.logits(params, h)[:, -1].float().topk(2, dim=-1).values
+                    head["margins"] += [(top2[r, 0] - top2[r, 1]).item() for r in diff]
+                return tok
+            engine._argmax = both
+        engine.run(workload)                                   # warm-up
+        engine.__dict__.pop("_argmax", None)
+        engines[strategy] = (engine, workload)
+    if head["tokens"]:
+        log(f"fleet {arch} bf16 serial: the exit-head kernel's token differs from the "
+            f"model-dtype argmax in {head['differ']} of {head['tokens']} tokens "
+            f"(bf16 top-2 margins there: {head['margins']})")
+    # one timed run of each strategy, after its warm-up run
+    walls, runs = {}, {}
+    for strategy, (engine, workload) in engines.items():
+        torch.cuda.synchronize()
+        calls["prompts"].clear()
+        calls["steps"].clear()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = engine.run(workload)
+        torch.cuda.synchronize()
+        walls[strategy] = time.perf_counter() - t0
+        counts = launch_counts()
+        expected = expected_launches(model, list(calls["prompts"]), list(calls["steps"]))
+        log(f"fleet {arch} bf16 {strategy}: {len(workload)} requests, "
+            f"{len(calls['prompts'])} prefills, {len(calls['steps'])} decode calls "
+            f"by segments run "
+            f"{ {n: calls['steps'].count(n) for n in sorted(set(calls['steps']))} }; "
+            f"launches {counts}, expected {expected}")
+        require(counts["exit_confidence"] == 0, f"fleet {arch}: the exit head ran on "
+                "the fleet path")
+        for name in FLEET_KERNELS[arch]:
+            require(counts[name] > 0, f"fleet {arch} {strategy}: {name} never launched")
+            for key in [k for k in expected if k.split(".")[0] == name]:
+                require(counts[key] == expected[key], f"fleet {arch} {strategy}: "
+                        f"{counts[key]} {key} launches, the calls give {expected[key]}")
+        for name in counts:
+            launches[name] = launches.get(name, 0) + counts[name]
+        runs[strategy] = (metrics.summary(), {r.rid: list(r.tokens) for r in workload})
+    serial_summary, serial_toks = runs["serial"]
+    total = sum(len(v) for v in serial_toks.values())
+    for strategy, (summary, toks) in runs.items():
+        st = engines[strategy][0].stepper.cache_stats()
+        agree = sum(a == b for rid in toks for a, b in zip(toks[rid], serial_toks[rid]))
+        wall = walls[strategy]
+        log(f"fleet {arch} bf16 {strategy}: {total / wall:.1f} decode tokens/s ({total} "
+            f"tokens in {wall:.4f} s after a warm-up run, CUDA-synchronised, prefill "
+            f"included); {agree} of "
+            f"{total} tokens equal to serial; decode {st['decode']} arena {st['arena']} "
+            f"variants {st['jit']['variants']}")
+        require(summary == serial_summary, f"fleet {arch}: the {strategy} summary differs "
+                "from the serial one (virtual time must not depend on the strategy)")
+        if strategy == "arena":
+            require(st["arena"]["calls"] > 0, f"fleet {arch}: no arena call")
+    del engines, engine
+
+    # -- float32: serial against arena, held
+    params32 = _to_f32(params)
+    del params
+    torch.cuda.empty_cache()
+    engine, workload = fleet_engine(arch, model, params32, torch.float32, "serial")
+    margins = record_margins(engine)
+    m_serial = engine.run(workload)
+    t_serial = {r.rid: list(r.tokens) for r in workload}
+    del engine
+    engine, workload = fleet_engine(arch, model, params32, torch.float32, "arena")
+    held = {"calls": 0, "rows": 0}
+    hold_masked_rows(torch, engine.stepper, held)
+    m_arena = engine.run(workload)
+    t_arena = {r.rid: list(r.tokens) for r in workload}
+    st = engine.stepper.cache_stats()
+    equal, total, parted = streams_held(f"fleet {arch} f32", t_serial, t_arena, margins)
+    least = min(min(m) for m in margins.values())
+    log(f"fleet {arch} f32 arena vs serial: {equal} of {total} tokens equal, parted "
+        f"(request: step, serial margin) {parted}, least serial margin {least:.3g}; "
+        f"{held['calls']} arena calls held {held['rows']} rows outside their masks bit for "
+        f"bit over {held.get('leaves')} cache leaves; arena {st['arena']} decode "
+        f"{st['decode']} variants {st['jit']['variants']}")
+    require(json.dumps(m_arena.summary(), sort_keys=True)
+            == json.dumps(m_serial.summary(), sort_keys=True),
+            f"fleet {arch} f32: the arena summary differs from the serial one")
+    ar = st["arena"]
+    require(ar["admits"] == ar["evicts"] > 0, f"fleet {arch}: admits {ar['admits']}, "
+            f"evicts {ar['evicts']}")
+    require(st["decode"]["padded_rows"] == 0 and st["decode"]["batched_calls"] == 0,
+            f"fleet {arch}: the arena run padded or batched: {st['decode']}")
+    require(0 < st["jit"]["variants"]["arena"] <= model.num_segments,
+            f"fleet {arch}: {st['jit']['variants']['arena']} arena variants for "
+            f"{model.num_segments} model exits")
+    require(held["calls"] == ar["calls"] and held["rows"] > 0,
+            f"fleet {arch}: {held['calls']} of {ar['calls']} arena calls held")
+    log(f"fleet {arch}: summary {m_serial.summary()}")
+    del engine, params32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def arena_steps(torch, arch):
+    """One full-depth arena call at ARENA_SLOTS active slots (the call, the
+    batched logits/argmax epilogue and the host read of the tokens), and
+    one serial B=1 step, on ``arch`` in bfloat16: ``{label: (step, rows)}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving.arena import DecodeArena
+    from repro_torch.serving.engine import CoInferenceStepper
+    from repro_torch.sim.build import build_planner
+
+    cfg = get_config(arch)
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init_params(gen, dtype=torch.bfloat16, device="cuda")
+    graph, planner = build_planner(cfg, fleet_spec(arch).planner)
+    stepper = CoInferenceStepper(model, graph, planner)
+    arena = DecodeArena(model, slots=ARENA_SLOTS, length=ARENA_LEN, dtype=torch.bfloat16,
+                        stepper=stepper, device="cuda")
+    rng = np.random.default_rng(0)
+    n_steps = 2 + 3 * PROFILE_STEPS
+
+    def argmax(h):
+        return torch.argmax(model.logits(params, h)[:, -1], -1).to(torch.int32)[:, None]
+
+    toks, serial = [], None
+    for s in range(ARENA_SLOTS):
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, FLEET_PROMPT))
+                                  .astype(np.int32)).cuda()
+        cache = model.init_cache(1, FLEET_PROMPT + n_steps + 1, dtype=torch.bfloat16,
+                                 device="cuda")
+        h, cache = model.prefill(params, prompt, cache)
+        toks.append(argmax(h))
+        arena.admit(s, cache)
+        serial = serial or {"cache": cache, "tok": toks[-1], "pos": FLEET_PROMPT}
+    state = {"tok": torch.cat(toks), "pos": FLEET_PROMPT}
+    decode = stepper.decode_fn(None)
+
+    def arena_step():
+        items = [(None, s, state["tok"][s:s + 1], state["pos"]) for s in range(ARENA_SLOTS)]
+        (_, h_all), = stepper.decode_step_arena(params, arena, items)
+        state["tok"] = argmax(h_all)
+        state["tok"][:, 0].tolist()
+        state["pos"] += 1
+
+    def serial_step():
+        h, serial["cache"] = decode(params, serial["cache"], serial["tok"], serial["pos"])
+        serial["tok"] = argmax(h)
+        serial["tok"][:, 0].tolist()
+        serial["pos"] += 1
+
+    return {"arena": (arena_step, ARENA_SLOTS), "serial": (serial_step, 1)}
+
+
+def arena_profile(torch, archs):
+    """The device idle share of one full-depth arena call at ARENA_SLOTS
+    active slots beside a serial B=1 step (``arena_steps``), measured as
+    ``tools/serve_profile.py`` measures a step: the median host-clock wall
+    of PROFILE_STEPS CUDA-synchronised steps, and the device time of
+    PROFILE_STEPS more from ``torch.profiler``.  Every wall is taken before
+    the process's first profiler session; the walls after the sessions are
+    logged beside them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def walls_ms(step):
+        walls = []
+        for _ in range(PROFILE_STEPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    def device_ms(step):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_STEPS):
+                step()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation and e.self_device_time_total > 0]
+        return (sum(e.self_device_time_total for e in kernels) / 1e3 / PROFILE_STEPS,
+                sum(e.count for e in kernels) / PROFILE_STEPS)
+
+    steps = {(arch, label): v for arch in archs
+             for label, v in arena_steps(torch, arch).items()}
+    for step, _ in steps.values():
+        for _ in range(2):
+            step()
+    torch.cuda.synchronize()
+    before = {key: walls_ms(step) for key, (step, _) in steps.items()}
+    traced = {key: device_ms(step) for key, (step, _) in steps.items()}
+    after = {key: walls_ms(step) for key, (step, _) in steps.items()}
+    for (arch, label), (_, rows) in steps.items():
+        wall = statistics.median(before[arch, label])
+        dev, n_kernels = traced[arch, label]
+        r = {
+            "wall_ms": wall, "device_ms": dev, "idle_share": 1.0 - dev / wall,
+            "kernels": n_kernels, "tokens_per_s": rows / wall * 1e3,
+            "wall_ms_after_profiler": statistics.median(after[arch, label])}
+        log(f"profile {arch} full-depth {label} step, {rows} active row(s) of {rows}: "
+            f"{wall:.2f} ms wall (median of {[round(w, 2) for w in before[arch, label]]}), "
+            f"{dev:.3f} ms of kernels on the device, idle share {r['idle_share']:.3f}, "
+            f"{n_kernels:.0f} kernels, {r['tokens_per_s']:.1f} tokens/s; after the "
+            f"profiler sessions {r['wall_ms_after_profiler']:.2f} ms wall")
+        require(dev > 0, f"profile {arch} {label}: no device time traced")
+    del steps
+    torch.cuda.empty_cache()
+
+
+def arena_kernel_times(torch, arch):
+    """The decode-attention kernel (and for zamba2-2.7b the stepped Mamba-2
+    scan) at the arena's shapes: checked against its plain version with
+    masked rows of length 1 among them, then timed with ARENA_SLOTS active
+    rows beside its plain version, SDPA and its bound: ``{kernel: times}``."""
+    import torch.nn.functional as F
+
+    import repro_torch.config as C
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.kernels.ssm_scan import ref as ss_ref
+    from repro_torch.models import mamba2 as M2
+
+    cfg = get_config(arch)
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    timer = Timer(torch)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    B, T = ARENA_SLOTS, ARENA_LEN
+    n_units = 2 if arch == LLAMA else cfg.num_layers // cfg.hybrid_attn_period
+    active = [FLEET_PROMPT + 1 + i for i in range(B)]
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for lens in ([1, active[1], 1, 1, active[4], 1, 1, 1], active):
+            ck, cv = randn(n_units, B, T, kv, d, dtype=dt), randn(n_units, B, T, kv, d, dtype=dt)
+            kc, vc = ck[n_units // 2], cv[n_units // 2]
+            q = randn(B, 1, h, d, dtype=dt)
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            o = fa_ops.decode_attention(q, kc, vc, lengths)
+            torch.cuda.synchronize()
+            qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+            plain = fa_ref.decode_attention(qt.float(), kt.float(), vt.float(),
+                                            lengths).transpose(1, 2)
+            diff = (o.float() - plain).abs()
+            share = (diff / (ATTN_ATOL + ATTN_RTOL[str(dt)] * plain.abs())).max().item()
+            log(f"check decode_attention {dt} arena B{B} T{T} H{h} KV{kv} hd{d} lengths "
+                f"{lens}: max_abs_err {diff.max().item():.3g}, worst err/allowed {share:.3g}")
+            require(torch.isfinite(o).all().item() and share <= 1.0,
+                    f"decode_attention at the arena shape disagrees: {share}")
+            if dt == torch.bfloat16 and lens == active:
+                qc, kcc, vcc = (x.contiguous() for x in (qt, kt, vt))
+                mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None]
+                t = dict(**timer.kernel(lambda: fa_ops.decode_attention(q, kc, vc, lengths)),
+                         plain_ms=timer.ms(lambda: fa_ref.decode_attention(qt, kt, vt, lengths)),
+                         library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                             qc, kcc, vcc, attn_mask=mask, enable_gqa=True)))
+                n_keys = sum(lens)
+                nbytes = (2 * q.numel() + 2 * n_keys * kv * d) * q.element_size() + 4 * B
+                t["bound_ms"], t["bound_by"] = bound(nbytes, 4 * h * d * n_keys, dt, C)
+                t.update(max_abs_err=diff.max().item(), dtype=str(dt),
+                         shape=f"B{B} T{T} H{h} KV{kv} hd{d} lengths {lens[0]}-{lens[-1]}")
+                log(f"time decode_attention arena {arch} {t}")
+                out["decode_attention"] = t
+    if arch == ZAMBA:
+        Hm, N = M2.n_heads(cfg), cfg.ssm_state
+        for dt in (torch.bfloat16, torch.float32):
+            bc, cc = randn(B, 1, N, dtype=dt), randn(B, 1, N, dtype=dt)
+            lw = -torch.exp(randn(B, 1, Hm, dtype=torch.float32, scale=0.5))
+            args = (cc[:, :, None].expand(B, 1, Hm, N), bc[:, :, None].expand(B, 1, Hm, N),
+                    randn(B, 1, Hm, M2.DH, dtype=dt), lw[..., None].expand(B, 1, Hm, N),
+                    randn(B, Hm, N, M2.DH, dtype=torch.float32, scale=0.1), None)
+            o, s = ss_ops.ssm_scan(*args)
+            torch.cuda.synchronize()
+            q_, k_, v_, lw_, s0, _ = args
+            po, ps = ss_ref.ssm_scan(q_.float(), k_.float(), v_.float(), lw_, s0)
+            diff = (o.float() - po).abs()
+            share = (diff / (SCAN_ATOL + ATTN_RTOL[str(dt)] * po.abs())).max().item()
+            sshare = ((s - ps).abs() / (SCAN_ATOL + STATE_RTOL * ps.abs())).max().item()
+            log(f"check ssm_scan {dt} arena mamba2 B{B} S1 H{Hm} ({ss_ops.route(q_, v_)}): "
+                f"o max_abs_err {diff.max().item():.3g}, worst err/allowed {share:.3g}; "
+                f"state worst {sshare:.3g}")
+            require(share <= 1.0 and sshare <= 1.0, "ssm_scan at the arena shape disagrees")
+            if dt == torch.bfloat16:
+                t = dict(**timer.kernel(lambda: ss_ops.ssm_scan(*args)),
+                         plain_ms=timer.ms(lambda: ss_ref.ssm_scan(*args)), library_ms=None)
+                nbytes = sum(distinct_bytes(x) for x in (q_, k_, v_, lw_, s0, o, s))
+                t["bound_ms"], t["bound_by"] = bound(nbytes, 6 * B * Hm * N * M2.DH, dt, C)
+                t.update(max_abs_err=diff.max().item(), dtype=str(dt),
+                         shape=f"mamba2 B{B} S1 H{Hm} dk{N} dv{M2.DH}")
+                log(f"time ssm_scan arena {arch} {t}")
+                out["ssm_scan"] = t
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -910,6 +1413,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    t_start = time.perf_counter()
     # float32 comparisons are made in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -941,8 +1445,8 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
 
-    # -- 4-7 the main paths, each with its kernel path against its plain path
-    launches = {}
+    # -- 4-9 the main paths, each with its kernel path against its plain path
+    launches, at_arena = {}, {}
     for arch in (LLAMA, RWKV, ZAMBA):
         params, counts = serve_main_path(torch, arch)
         kernel_vs_plain(torch, params, arch)
@@ -950,6 +1454,15 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
         del params
         torch.cuda.empty_cache()
+
+    # -- 10-11 the fleet with real decode through the arena, at full width;
+    #    the profiles of an arena call last, after every timed run
+    for arch in (LLAMA, ZAMBA):
+        for name, t in arena_kernel_times(torch, arch).items():
+            at_arena.setdefault(name, {})[arch] = t
+        for name, n in fleet_phase(torch, arch).items():
+            launches[name] = launches.get(name, 0) + n
+    arena_profile(torch, (LLAMA, ZAMBA))
     log(f"launches over the served paths: {launches}")
 
     sources = {
@@ -971,7 +1484,9 @@ def main() -> int:
                         "ms_unspun": t["ms_unspun"], "host_us": t["host_us"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                        "shape": t["shape"], "dtype": t["dtype"]})
+                        "shape": t["shape"], "dtype": t["dtype"],
+                        **({"at_arena": at_arena[name]} if name in at_arena else {})})
+    log(f"chip_smoke: phases 1-11 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -23,13 +23,13 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
     if cfg.family in ("ssm", "hybrid"):
         return None
     if cfg.is_encdec:
-        return "step 7, enc-dec (models/encdec.py)"
+        return "step 8, enc-dec (models/encdec.py)"
     if cfg.num_experts:
-        return "step 7, MoE (models/moe.py)"
+        return "step 8, MoE (models/moe.py)"
     if cfg.frontend != "none":
-        return "step 7, the VLM prefix"
+        return "step 8, the VLM prefix"
     if cfg.family != "dense":
-        return f"step 7, the {cfg.family} family"
+        return f"step 8, the {cfg.family} family"
     return None
 
 
@@ -67,17 +67,19 @@ class Model:
         return self.stack.prefill(self.cfg, params, tokens, cache, impl=impl)
 
     def decode_step(self, params, cache, tokens, pos, *, exit_point=None,
-                    with_exit_confidence=False, impl="kernel"):
+                    with_exit_confidence=False, impl="kernel", mask=None):
         """``with_exit_confidence`` is ignored by the ssm and hybrid
         families, which report no intermediate exits (``[]``), as the
-        reference."""
+        reference.  ``mask`` ([B] bool) commits the cache writes of its
+        rows only (the arena's masked commit)."""
         if self.stack is ssm_stack:
             return ssm_stack.decode_step(self.cfg, params, cache, tokens, pos,
-                                         exit_point=exit_point, impl=impl)
+                                         exit_point=exit_point, impl=impl,
+                                         mask=mask)
         return transformer.decode_step(self.cfg, params, cache, tokens, pos,
                                        exit_point=exit_point,
                                        with_exit_confidence=with_exit_confidence,
-                                       impl=impl)
+                                       impl=impl, mask=mask)
 
     def logits(self, params, hidden):
         return L.logits(params["embed"], hidden)

@@ -122,16 +122,26 @@ def decode_lengths(cache_pos, B: int, device):
     return (cache_pos + 1).to(device=device, dtype=torch.int32)
 
 
-def _write_cache(buf, val, cache_pos):
+def _write_cache(buf, val, cache_pos, mask=None):
     """In-place KV write at ``cache_pos`` along the sequence axis.
 
     The reference's ``jax.lax.dynamic_update_slice_in_dim`` returns a new
     buffer and clamps an out-of-range start; here the buffer is written in
     place, and an out-of-range write raises instead of clamping (the
     serving cache is sized prompt + max_new + 1, so the main path never
-    reaches the end)."""
+    reaches the end).
+
+    ``mask`` ([B] bool, or None for every row; only with [B] positions)
+    is the masked commit of the
+    reference's arena call, which computes every row and keeps the new
+    state only where the mask is set: a row outside it writes back the
+    value it already holds, bit for bit, so several calls with disjoint
+    masks may sweep one cache in turn.  The old value is gathered on the
+    card, so the commit needs no host sync."""
     S, T = val.shape[1], buf.shape[1]
     if isinstance(cache_pos, int):
+        if mask is not None:
+            raise ValueError("a masked commit takes [B] cache positions")
         if not (0 <= cache_pos and cache_pos + S <= T):
             raise IndexError(f"cache write [{cache_pos}, {cache_pos + S}) "
                              f"outside a cache of length {T}")
@@ -140,12 +150,16 @@ def _write_cache(buf, val, cache_pos):
         if S != 1:
             raise ValueError("per-row cache positions take one token per row")
         rows = torch.arange(buf.shape[0], device=buf.device)
-        buf[rows, cache_pos.to(buf.device)] = val[:, 0].to(buf.dtype)
+        idx = cache_pos.to(buf.device)
+        new = val[:, 0].to(buf.dtype)
+        if mask is not None:
+            new = torch.where(mask.view(-1, 1, 1), new, buf[rows, idx])
+        buf[rows, idx] = new
 
 
 def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
               kv_cache=None, cache_pos=None, lengths=None, impl="kernel",
-              prefill_mode=False):
+              prefill_mode=False, write_mask=None):
     """Full/cached attention.
 
     - training: ``kv_cache is None`` -> self attention over x.
@@ -155,7 +169,8 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
       [B] tensor — writes the new kv at ``cache_pos`` and attends to
       [0, cache_pos].  ``lengths`` is :func:`decode_lengths` of
       ``cache_pos``; a decode step builds it once for all its layers, and it
-      is built here when not given.
+      is built here when not given.  ``write_mask`` ([B] bool) commits the
+      cache write of the rows it selects only (:func:`_write_cache`).
     Returns (out [B,S,D], new_cache or None); the cache is written in place
     and returned.
 
@@ -185,8 +200,8 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
     new_cache = None
     if kv_cache is not None:
         ck, cv = kv_cache
-        _write_cache(ck, k, cache_pos)
-        _write_cache(cv, v, cache_pos)
+        _write_cache(ck, k, cache_pos, write_mask)
+        _write_cache(cv, v, cache_pos, write_mask)
         new_cache = (ck, cv)
         if not prefill_mode:
             # decode: attend to the filled cache

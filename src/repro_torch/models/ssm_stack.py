@@ -129,11 +129,11 @@ def _run_rwkv_segment(cfg, segp, x, seg_state, *, mode="auto", impl="kernel"):
 
 def _run_mamba_segment(cfg, params, segp, x, seg_state, shared_cache, positions,
                        *, mode="auto", impl="kernel", cache_pos=None,
-                       prefill_mode=False):
+                       prefill_mode=False, write_mask=None):
     """Segment of ``n`` mamba blocks; the shared attn block after every
     ``hybrid_attn_period`` blocks.  ``shared_cache``: (k, v) views of this
-    segment's applications, [napp_seg, B, T, KV, hd] (written in place), or
-    None (no cache)."""
+    segment's applications, [napp_seg, B, T, KV, hd] (written in place, only
+    the rows of ``write_mask`` when given), or None (no cache)."""
     period = cfg.hybrid_attn_period
     n = seg_state["ssm"].shape[0]
     ssm, conv = [], []
@@ -148,7 +148,8 @@ def _run_mamba_segment(cfg, params, segp, x, seg_state, shared_cache, positions,
         # weight-shared attention + ffn block
         kv = None if shared_cache is None else (shared_cache[0][a], shared_cache[1][a])
         out, _ = L.attention(params["shared_attn"], cfg, x, positions, kv_cache=kv,
-                             cache_pos=cache_pos, impl=impl, prefill_mode=prefill_mode)
+                             cache_pos=cache_pos, impl=impl, prefill_mode=prefill_mode,
+                             write_mask=write_mask)
         x = x + out
         x = x + L.ffn(params["shared_ffn"], cfg, x)
     return x, {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
@@ -160,7 +161,7 @@ def _run_mamba_segment(cfg, params, segp, x, seg_state, shared_cache, positions,
 
 def _stack_forward(cfg, params, x, cache, *, mode, exit_point=None,
                    collect_exits=True, impl="kernel", cache_pos=None,
-                   prefill_mode=False):
+                   prefill_mode=False, write_mask=None):
     """Run segments [0, exit_point] (all when None).  Segments past the exit
     are not run: their state stays as it was (stale), as in the reference.
     Returns (outs, new_cache); ``outs`` is a list of (segment, normed
@@ -188,7 +189,8 @@ def _stack_forward(cfg, params, x, cache, *, mode, exit_point=None,
                           cache["shared_v"][app_off:app_off + napp])
             x, nst = _run_mamba_segment(cfg, params, segp, x, cache["segments"][si],
                                         shared, positions, mode=mode, impl=impl,
-                                        cache_pos=cache_pos, prefill_mode=prefill_mode)
+                                        cache_pos=cache_pos, prefill_mode=prefill_mode,
+                                        write_mask=write_mask)
             app_off += napp
         new_segments[si] = nst
         is_last = si == n_seg - 1
@@ -226,17 +228,34 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, impl="kernel"):
     return h[:, -1:, :], new_cache
 
 
+def _commit_rows(mask, new, old):
+    """The rows of ``mask`` from ``new``, the others from ``old``, along the
+    batch axis (axis 1 of every state leaf), as the reference's masked
+    commit.  A leaf the step did not run (a segment past the exit) is
+    ``old`` itself and stays so."""
+    if new is old:
+        return old
+    return torch.where(mask.view((1, -1) + (1,) * (new.ndim - 2)), new, old)
+
+
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
-                exit_point=None, impl="kernel"):
+                exit_point=None, impl="kernel", mask=None):
     """One decode step (tokens [B,1]; ``pos`` an int or a [B] tensor) through
     segments [0, exit_point].  Returns (normed_hidden [B,1,D], cache, []):
     these families report no intermediate exit confidences, as the
-    reference."""
+    reference.  ``mask`` ([B] bool) commits the new state of the rows it
+    selects only: the recurrent state through :func:`_commit_rows`, the
+    hybrid's shared KV cache in place; every other row keeps its state bit
+    for bit (the arena's masked commit)."""
     if isinstance(pos, torch.Tensor) and pos.ndim == 0:
         pos = int(pos)
     x = L.embed(params["embed"], tokens)
     outs, new_cache = _stack_forward(cfg, params, x, cache, mode="sequential",
                                      exit_point=exit_point, collect_exits=False,
-                                     impl=impl, cache_pos=pos)
+                                     impl=impl, cache_pos=pos, write_mask=mask)
+    if mask is not None:
+        new_cache = dict(new_cache, segments=tuple(
+            {k: _commit_rows(mask, n[k], o[k]) for k in n}
+            for n, o in zip(new_cache["segments"], cache["segments"])))
     _, h = outs[-1]
     return h, new_cache, []

@@ -97,9 +97,9 @@ def _unit(tree, u: int):
 
 def _run_segment(cfg, seg_params, x, positions, *, impl="kernel",
                  seg_cache=None, cache_pos=None, lengths=None,
-                 prefill_mode=False):
+                 prefill_mode=False, write_mask=None):
     """Run a segment's stacked units in order.  Returns (x, seg_cache); the
-    cache is written in place."""
+    cache is written in place (only the rows of ``write_mask`` when given)."""
     n = seg_params["attn"]["wq"].shape[0]
     for u in range(n):
         lp = _unit(seg_params, u)
@@ -108,7 +108,7 @@ def _run_segment(cfg, seg_params, x, positions, *, impl="kernel",
             kv = (seg_cache["attn_k"][u], seg_cache["attn_v"][u])
         out, _ = L.attention(lp["attn"], cfg, x, positions, kv_cache=kv,
                              cache_pos=cache_pos, lengths=lengths, impl=impl,
-                             prefill_mode=prefill_mode)
+                             prefill_mode=prefill_mode, write_mask=write_mask)
         x = x + out
         x = x + L.ffn(lp["ffn"], cfg, x)
     return x, seg_cache
@@ -166,9 +166,11 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, impl="kernel"):
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
                 exit_point: Optional[int] = None,
-                with_exit_confidence: bool = False, impl="kernel"):
+                with_exit_confidence: bool = False, impl="kernel", mask=None):
     """One decode step.  tokens: [B,1]; pos: the cache position, an int for
-    every row or a [B] integer tensor (one per row).
+    every row or a [B] integer tensor (one per row).  ``mask`` ([B] bool)
+    commits the cache writes of the rows it selects only; every other row
+    keeps its cache bit for bit (the arena's masked commit).
 
     ``exit_point`` right-sizes the model: only segments [0, exit_point] run
     and the exit head at that boundary produces the hidden state.
@@ -193,7 +195,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     for si in range(n_seg):
         x, _ = _run_segment(cfg, params["segments"][si], x, positions,
                             impl=impl, seg_cache=cache[si], cache_pos=pos,
-                            lengths=lengths)
+                            lengths=lengths, write_mask=mask)
         is_last = si == n_seg - 1
         if with_exit_confidence and not is_last and cfg.num_exits:
             h = L.rms_norm(x, params["exit_norms"][si], cfg.norm_eps)

@@ -9,8 +9,8 @@ segment), virtual time is billed per tier + link, and deadline demotion
 rescues batches that fall behind.
 
 The plan -> decode -> demote step lives in :class:`CoInferenceStepper`, a
-reusable unit meant to be shared with the fleet simulator (ported with the
-fleet slice): it owns the per-exit decode callables and a plan cache keyed on quantized
+reusable unit shared with the fleet simulator (``repro_torch.fleet.engine``):
+it owns the per-exit decode callables and a plan cache keyed on quantized
 bandwidth state, so many devices that observe the same bandwidth state reuse
 one Algorithm-1 search result.
 
@@ -19,17 +19,22 @@ on the card (prefill flash attention, decode attention and the fused exit
 head that picks each token), through their plain versions on the CPU;
 timing comes from the latency models — deterministic and host-independent.
 
-This slice ports the serial decode path.  The batched (``vmap``-group) and
-slot-resident arena decode methods of the reference arrive with the arena
-slice (``ROADMAP.md``); until then :meth:`CoInferenceStepper.cache_stats`
-reports their blocks at zero so the schema is the reference's.
+The stepper decodes three ways, as the reference's: serial (one request a
+call), batched (co-located requests with congruent caches concatenated
+along the batch axis, :meth:`CoInferenceStepper.decode_step_batch`) and
+through a slot-resident :class:`~repro_torch.serving.arena.DecodeArena`
+(:meth:`CoInferenceStepper.decode_step_arena`).  The reference's ``vmap``
+rows are the batch axis of one eager call here; its jit caches become
+memos of decode callables, which :meth:`CoInferenceStepper.cache_stats`
+counts in the reference's schema.
 """
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from functools import partial
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +47,7 @@ from repro_torch.core.planner import EdgentPlanner
 from repro_torch.kernels.exit_head import ops as eh_ops
 from repro_torch.kernels.exit_head import ref as eh_ref
 from repro_torch.models.api import Model
+from repro_torch.serving.arena import cache_sig, pow2, tree_map
 from repro_torch.serving.scheduler import SLOScheduler, pick_exit
 from repro_torch.serving.tiers import Link
 
@@ -107,14 +113,15 @@ def quantize_bw(bw_bps: float, sig_figs: int = 3) -> float:
 class CoInferenceStepper:
     """Reusable plan -> decode -> demote unit.
 
-    Shared by :class:`ServingEngine` (one device-edge pair) and, once the
-    fleet slice lands, the fleet engine (many pairs): holds the per-exit
-    decode callables and a plan cache shared across callers.
+    Shared by :class:`ServingEngine` (one device-edge pair) and
+    ``repro_torch.fleet.engine.FleetEngine`` (many pairs): holds the
+    per-exit decode callables and a plan cache shared across callers.
     ``model`` may be ``None`` for timing-only simulation (no real decode).
     """
 
-    #: the reference's bound on batched-decode variants, reported by
-    #: cache_stats; the batched variants arrive with the arena slice
+    #: the reference's bound on compiled batched-decode variants, reported
+    #: by cache_stats for its schema; eager PyTorch compiles nothing, so
+    #: the port's memos need no bound
     JIT_CACHE_MAX = 32
 
     def __init__(self, model: Optional[Model], graph: InferenceGraph,
@@ -148,10 +155,31 @@ class CoInferenceStepper:
         self.step_hits = self.step_misses = 0
         self.hop_hits = self.hop_misses = 0
         # per-model-exit decode callables.  PyTorch runs eagerly, so there
-        # is nothing to compile; the memo (and the "jit" block of
-        # cache_stats, kept for the reference's schema) counts variants.
+        # is nothing to compile; the memos (and the "jit" block of
+        # cache_stats, kept for the reference's schema) count variants:
+        # serial per model exit; batched per (model exit, batch bucket,
+        # sharded); arena per (model exit,
+        # arena signature), at most one per model exit while the arena
+        # keeps its geometry.
         self._decode_fns: Dict[Optional[int], object] = {}
+        self._decode_vfns: Dict[tuple, object] = {}
+        self._decode_afns: Dict[tuple, object] = {}
         self.jit_hits = self.jit_misses = 0
+        # decode-path execution counters, as the reference's
+        self.batched_calls = 0        # batched group calls issued
+        self.batched_tokens = 0       # tokens produced through batched groups
+        self.serial_tokens = 0        # tokens produced one request at a time
+        self.padded_rows = 0          # bucket padding rows computed+discarded
+        self.batched_max = 0          # largest single batched group seen
+        # arena-path execution counters: admit/evict/grow are the only
+        # per-request writes, masked_rows counts inactive-slot rows
+        # computed and discarded per call
+        self.arena_calls = 0          # masked full-arena calls issued
+        self.arena_tokens = 0         # tokens produced through arena calls
+        self.arena_masked_rows = 0    # inactive rows computed+discarded
+        self.arena_admits = 0         # slot copies (request enters arena)
+        self.arena_evicts = 0         # slot frees (complete or extracted)
+        self.arena_grows = 0          # slot-doubling / length re-bucketing
         self.n_graph = graph.num_exits
         self.n_model = model.num_segments if model is not None else graph.num_exits
         self.exit_points = list(range(1, self.n_graph + 1))
@@ -373,20 +401,36 @@ class CoInferenceStepper:
                           len(self._step_cache)),
             "hop": block(self.hop_hits, self.hop_misses,
                          len(self.hop_cache)),
-            # decode variants, per model exit; the batched and arena
-            # families (and the counters of the "decode" and "arena"
-            # blocks) arrive with the arena slice and read zero until then
+            # decode variants: serial per-exit + batched (exit, bucket)
+            # entries + masked arena (exit, sig) entries, with the
+            # per-family split under "variants"
             "jit": dict(block(self.jit_hits, self.jit_misses,
-                              len(self._decode_fns)),
+                              len(self._decode_fns) + len(self._decode_vfns)
+                              + len(self._decode_afns)),
                         max_entries=self.JIT_CACHE_MAX,
                         variants={"serial": len(self._decode_fns),
-                                  "batched": 0, "arena": 0}),
-            "decode": {"batched_calls": 0, "batched_tokens": 0,
-                       "serial_tokens": 0, "padded_rows": 0,
-                       "batched_max": 0},
-            "arena": {"calls": 0, "tokens": 0, "masked_rows": 0,
-                      "admits": 0, "evicts": 0, "grows": 0,
-                      "occupancy": None, "variants": 0},
+                                  "batched": len(self._decode_vfns),
+                                  "arena": len(self._decode_afns)}),
+            # execution counters, not a hit/miss cache: how decode tokens
+            # actually ran
+            "decode": {"batched_calls": self.batched_calls,
+                       "batched_tokens": self.batched_tokens,
+                       "serial_tokens": self.serial_tokens,
+                       "padded_rows": self.padded_rows,
+                       "batched_max": self.batched_max},
+            # arena execution counters; occupancy = active rows / rows
+            # computed
+            "arena": {"calls": self.arena_calls,
+                      "tokens": self.arena_tokens,
+                      "masked_rows": self.arena_masked_rows,
+                      "admits": self.arena_admits,
+                      "evicts": self.arena_evicts,
+                      "grows": self.arena_grows,
+                      "occupancy": round(
+                          self.arena_tokens
+                          / (self.arena_tokens + self.arena_masked_rows), 4)
+                      if self.arena_tokens + self.arena_masked_rows else None,
+                      "variants": len(self._decode_afns)},
         }
 
     # ------------------------------------------------------------ decode path
@@ -415,6 +459,157 @@ class CoInferenceStepper:
         else:
             self.jit_hits += 1
         return self._decode_fns[mexit]
+
+    # --------------------------------------------------------- batched decode
+    @staticmethod
+    def batch_bucket(n: int) -> int:
+        """Batch widths come in power-of-two buckets: a group of ``n``
+        co-located requests pads up to the bucket, so a continuous batch
+        whose width wobbles round to round reuses one variant per bucket
+        instead of one per width."""
+        return pow2(n)
+
+    def decode_fn_batched(self, graph_exit: Optional[int], batch: int, *,
+                          sharded: bool = False):
+        """The batched decode callable ``(params, cache, tokens, pos) ->
+        (h, cache)`` for ``graph_exit`` at ``batch`` co-located requests,
+        over caches concatenated along the batch axis with one position per
+        row; memoized per ``(model exit, batch bucket, sharded)``.
+        ``sharded`` splits the batch
+        over a device mesh in the reference; the port has no mesh yet (it
+        comes with the ``launch/mesh.py`` slice), so it runs the plain
+        batched variant, as the reference does on a one-device host."""
+        assert self.model is not None, "timing-only stepper has no decode path"
+        mexit = None if graph_exit is None else self.to_model_exit(graph_exit)
+        key = (mexit, self.batch_bucket(batch), bool(sharded))
+        fn = self._decode_vfns.get(key)
+        if fn is None:
+            self.jit_misses += 1
+            ep = None if mexit is None or mexit >= self.n_model else mexit - 1
+            fn = (lambda p, c, t, pos: self.model.decode_step(
+                p, c, t, pos, exit_point=ep, impl=self.impl)[:2])
+            self._decode_vfns[key] = fn
+        else:
+            self.jit_hits += 1
+        return fn
+
+    @staticmethod
+    def _cache_sig(cache) -> tuple:
+        """Hashable shape/dtype signature of one request's decode cache.
+        Batched groups concatenate caches leaf by leaf, so only requests
+        whose caches are congruent (same tenant geometry: prompt + budget
+        sizing) may share a call."""
+        return cache_sig(cache)
+
+    def decode_step_batch(self, params, items: Sequence[tuple], *,
+                          sharded: bool = False) -> List[Tuple[object, object]]:
+        """One decode step for many co-located requests in as few calls as
+        the cache geometry allows.
+
+        ``items`` rows are ``(graph_exit, cache, next_tok, pos)`` with B=1
+        caches (``pos`` a python int).  Rows are grouped by (exit, cache
+        signature); each group is concatenated along the batch axis, padded
+        up to its power-of-two bucket with copies of row 0 (``torch.cat``
+        copies, so a padding row shares no storage with row 0 and its
+        in-place cache writes touch nothing a request holds; the discard is
+        counted in ``padded_rows``), and run through
+        :meth:`decode_fn_batched`.  Returns ``(hidden, new_cache)`` per
+        item, in item order; each new cache is a copy of its row that owns
+        its storage, so a later serial call that writes it in place touches
+        no other request.  A single-row group runs the serial variant."""
+        out: List[Optional[Tuple[object, object]]] = [None] * len(items)
+        groups: "OrderedDict[tuple, List[int]]" = OrderedDict()
+        for i, (gexit, cache, _tok, _pos) in enumerate(items):
+            groups.setdefault((gexit, self._cache_sig(cache)), []).append(i)
+        for (gexit, _sig), idxs in groups.items():
+            n = len(idxs)
+            if n == 1:
+                i = idxs[0]
+                _, cache, tok, pos = items[i]
+                out[i] = self.decode_fn(gexit)(params, cache, tok, pos)
+                self.serial_tokens += 1
+                continue
+            bucket = self.batch_bucket(n)
+            rows = [items[i] for i in idxs]
+            rows += [rows[0]] * (bucket - n)              # pad: replicate
+            cb = tree_map(lambda *xs: torch.cat(xs, dim=1), *[r[1] for r in rows])
+            tb = torch.cat([r[2] for r in rows], dim=0)
+            pb = torch.tensor([r[3] for r in rows], dtype=torch.long,
+                              device=tb.device)
+            fn = self.decode_fn_batched(gexit, n, sharded=sharded)
+            hb, cob = fn(params, cb, tb, pb)
+            for j, i in enumerate(idxs):
+                out[i] = (hb[j:j + 1],
+                          tree_map(lambda x, j=j: x[:, j:j + 1].clone(), cob))
+            self.batched_calls += 1
+            self.batched_tokens += n
+            self.padded_rows += bucket - n
+            if n > self.batched_max:
+                self.batched_max = n
+        return out
+
+    # ---------------------------------------------------------- arena decode
+    def decode_fn_arena(self, graph_exit: Optional[int], arena):
+        """The masked full-arena decode callable ``(params, cache, tokens,
+        pos, mask) -> (h, cache)`` for ``graph_exit`` over ``arena``'s
+        geometry: one batched ``decode_step`` over all ``slots`` rows whose
+        ``mask`` selects the rows that commit their cache writes (the
+        others keep their state bit for bit).  Keyed ``(model exit, arena
+        signature)``, so while the arena keeps its geometry there is one
+        variant per model exit whatever the prompt-length and batch-width
+        mix."""
+        assert self.model is not None, "timing-only stepper has no decode path"
+        mexit = None if graph_exit is None else self.to_model_exit(graph_exit)
+        key = (mexit, arena.sig())
+        fn = self._decode_afns.get(key)
+        if fn is not None:
+            self.jit_hits += 1
+            return fn
+        self.jit_misses += 1
+        ep = None if mexit is None or mexit >= self.n_model else mexit - 1
+        fn = (lambda p, c, t, pos, mask: self.model.decode_step(
+            p, c, t, pos, exit_point=ep, impl=self.impl, mask=mask)[:2])
+        self._decode_afns[key] = fn
+        return fn
+
+    def decode_step_arena(self, params, arena, items: Sequence[tuple]
+                          ) -> List[tuple]:
+        """One decode step for every active slot of ``arena`` in at most
+        one call per model exit.
+
+        ``items`` rows are ``(graph_exit, slot, next_tok, pos)``: no
+        caches, the state is already resident.  Rows sharing a model exit
+        decode in one masked full-arena call; rows outside the mask run
+        with token 0 at position 0 and keep their state, so several exit
+        groups may sweep the same arena in turn.  Returns one ``(rows,
+        hidden)`` pair per exit group, ``hidden`` being the full ``[slots,
+        1, D]`` batch: callers index it by slot, or feed it whole to one
+        batched logits/argmax epilogue per group."""
+        slots, dev = arena.slots, arena.device
+        groups: "OrderedDict[Optional[int], List[tuple]]" = OrderedDict()
+        for gexit, slot, tok, pos in items:
+            mexit = None if gexit is None else self.to_model_exit(gexit)
+            groups.setdefault(mexit, []).append((gexit, slot, tok, pos))
+        out: List[tuple] = []
+        for rows in groups.values():
+            pos_a = np.zeros((slots,), np.int64)
+            mask_a = np.zeros((slots,), bool)
+            for _, slot, _, pos in rows:
+                pos_a[slot] = pos
+                mask_a[slot] = True
+            idx = torch.tensor([r[1] for r in rows], dtype=torch.long, device=dev)
+            tok_a = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+            tok_a.index_copy_(0, idx, torch.cat(
+                [r[2].reshape(1, 1) for r in rows]).to(device=dev, dtype=torch.int32))
+            fn = self.decode_fn_arena(rows[0][0], arena)
+            h_all, arena.cache = fn(params, arena.cache, tok_a,
+                                    torch.from_numpy(pos_a).to(dev),
+                                    torch.from_numpy(mask_a).to(dev))
+            out.append((rows, h_all))
+            self.arena_calls += 1
+            self.arena_tokens += len(rows)
+            self.arena_masked_rows += slots - len(rows)
+        return out
 
     def next_token(self, params, h):
         """Greedy token of normed hidden ``h`` [B, 1, D] as [B, 1] int32:
