@@ -37,6 +37,11 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return reduced(get_config(arch))
 
 
+def get_alexnet_config():
+    mod = importlib.import_module("repro_torch.configs.branchy_alexnet")
+    return mod.CONFIG
+
+
 def cells():
     """Yield every assigned (arch, shape, applicable, reason) dry-run cell."""
     for arch in ARCH_IDS:

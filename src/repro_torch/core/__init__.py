@@ -1,6 +1,7 @@
 # The paper's primary contribution: joint DNN partitioning + right-sizing
 # under a latency SLO, for static and dynamic bandwidth environments.
-from repro_torch.core.graph import GraphLayer, InferenceGraph, lm_graph  # noqa: F401
+from repro_torch.core.graph import (GraphLayer, InferenceGraph,  # noqa: F401
+                                    alexnet_graph, lm_graph)
 from repro_torch.core.latency_model import (ProfileRecord,  # noqa: F401
                                             RegressionLatencyModel,
                                             RooflineLatencyModel,

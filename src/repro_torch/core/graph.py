@@ -7,8 +7,8 @@ an executable closure.  Both the branchy AlexNet (layer granularity) and the
 LM architectures (transformer-segment granularity) lower to this form, which
 is exactly the structure Algorithm 1 searches over.
 
-This slice of the port lowers the LM architectures only (``lm_graph``);
-``alexnet_graph`` arrives with the BranchyAlexNet slice.
+A layer's ``run`` closure is a plain torch callable ``(params, x) -> x``
+that computes on the device of its input tensor.
 """
 from __future__ import annotations
 
@@ -54,6 +54,40 @@ class InferenceGraph:
             return self.result_bytes
         lay = branch[p - 1]
         return lay.out_bytes + lay.state_bytes
+
+
+def alexnet_graph(net, accuracy: Optional[Sequence[float]] = None,
+                  batch: int = 1, dtype_bytes: int = 4) -> InferenceGraph:
+    """Lower a BranchyAlexNet to an InferenceGraph."""
+    from repro_torch.models.alexnet import layer_features
+
+    branches = []
+    for i in range(1, net.num_exits + 1):
+        layers = []
+        shapes = net.branch_shapes(i)
+        for spec, (in_shape, out_shape) in zip(net.branch_layers(i), shapes):
+            layers.append(GraphLayer(
+                name=spec.name,
+                kind=spec.kind,
+                features=layer_features(spec, in_shape),
+                out_bytes=int(np.prod(out_shape)) * batch * dtype_bytes,
+                run=(lambda spec: lambda params, x: _apply(net, spec, params, x))(spec),
+            ))
+        branches.append(layers)
+    img = net.cfg.image_size
+    acc = list(accuracy) if accuracy is not None else [0.5 + 0.08 * i for i in range(net.num_exits)]
+    return InferenceGraph(
+        name=net.cfg.name,
+        branches=branches,
+        accuracy=acc,
+        input_bytes=img * img * net.cfg.channels * batch * dtype_bytes,
+        result_bytes=net.cfg.num_classes * batch * dtype_bytes,
+    )
+
+
+def _apply(net, spec, params, x):
+    from repro_torch.models.alexnet import apply_layer
+    return apply_layer(spec, params.get(spec.name, {}), x)
 
 
 def lm_graph(cfg, accuracy: Optional[Sequence[float]] = None,

@@ -7,6 +7,10 @@ arrays (``jax.tree_util.tree_map(np.asarray, params)``) and hands it here.
 Weights keep the reference's ``[in, out]`` layout (the port multiplies
 ``x @ W`` as the reference does), so every leaf is copied as it is, and the
 port's tree has the reference's structure for every family it serves.
+
+BranchyAlexNet's parameters (a dict of layers keyed by name) convert with
+:func:`alexnet_params_from_numpy`: its conv weights turn from the
+reference's HWIO into the port's OIHW.
 """
 from __future__ import annotations
 
@@ -55,3 +59,21 @@ def params_from_numpy(cfg: ModelConfig, tree, *, dtype=torch.float32,
         if depths != {n}:
             raise ValueError(f"segment stacks {sorted(depths)} units, config has {n}")
     return _convert(tree, dtype, dev)
+
+
+def alexnet_params_from_numpy(tree, *, dtype=torch.float32, device="cuda"):
+    """``tree``: the reference's BranchyAlexNet parameters as numpy arrays,
+    ``{layer name: {"w", "b"}}`` (``{}`` for layers without parameters).
+    Conv weights go from HWIO ``[f, f, in, out]`` to OIHW ``[out, in, f,
+    f]``, stored channels-last as ``BranchyAlexNet.init`` stores them; fc
+    weights keep ``[in, out]``."""
+    dev = resolve(device)
+
+    def leaf(v):
+        t = torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
+        if t.ndim == 4:                                    # conv HWIO -> OIHW
+            return t.permute(3, 2, 0, 1).to(device=dev, dtype=dtype) \
+                .contiguous(memory_format=torch.channels_last)
+        return t.to(device=dev, dtype=dtype)
+    return {name: {k: leaf(v) for k, v in layer.items()}
+            for name, layer in tree.items()}

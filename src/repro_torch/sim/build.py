@@ -17,10 +17,12 @@ workload.
 Entry points that execute the model run on the card unless the caller asks
 for the CPU: ``Simulation(spec, device="cuda")`` and
 ``build_stack(..., device="cuda")``; a timing-only spec builds no model
-and needs no device.  Spec options whose machinery the port does not have
-yet (``engine.trace``, ``engine.timeline``, ``calibration`` and
-``topology.shards > 1``) raise :class:`NotImplementedError` naming the
-``ROADMAP.md`` slice that brings them; none is ignored.
+and needs no device.  ``calibration`` swaps the planner's roofline models
+for regressions fitted from a measured table (``repro_torch.calib``).
+Spec options whose machinery the port does not have yet
+(``engine.trace``, ``engine.timeline`` and ``topology.shards > 1``) raise
+:class:`NotImplementedError` naming the ``ROADMAP.md`` step that brings
+them; none is ignored.
 """
 from __future__ import annotations
 
@@ -53,10 +55,9 @@ HBM_BW = _hw.HBM_BW
 
 #: the ROADMAP.md open item 1 step that brings each option the port refuses
 _LATER = {
-    "engine.trace": "step 3 (obs/trace.py)",
-    "engine.timeline": "step 3 (obs/timeline.py)",
-    "calibration": "step 7 (calib/*)",
-    "topology.shards > 1": "step 2 (sim/shard.py)",
+    "engine.trace": "step 2 (obs/trace.py)",
+    "engine.timeline": "step 2 (obs/timeline.py)",
+    "topology.shards > 1": "step 1 (sim/shard.py)",
 }
 
 
@@ -109,14 +110,23 @@ def build_stack(spec: PlannerSpec, *, with_model: bool = False,
     neither: the vocab comes from ``cfg``, so they build with both off,
     skip model construction entirely and need no device.
 
-    A ``scenario_spec`` with ``calibration`` set is refused: the
-    calibrated latency models come with the calib slice."""
+    With ``scenario_spec.calibration`` set, the planner's latency models are
+    replaced by regressions fitted from the named measured
+    :class:`~repro_torch.calib.CalibrationTable` (``repro_torch.calib.fit``
+    — see docs/calibration.md)."""
     from repro_torch.configs import get_smoke_config
 
-    if scenario_spec is not None and scenario_spec.calibration is not None:
-        raise _not_ported("calibration")
     cfg = get_smoke_config(spec.arch)
     graph, planner = build_planner(cfg, spec)
+    if scenario_spec is not None and scenario_spec.calibration is not None \
+            and scenario_spec.calibration.table:
+        from repro_torch.calib.fit import models_from_table
+        from repro_torch.calib.table import CalibrationTable
+        table = CalibrationTable.load(scenario_spec.calibration.table)
+        f_edge, f_dev = models_from_table(
+            table, spec, graph=graph,
+            anchor=scenario_spec.calibration.anchor)
+        planner.with_models(f_edge, f_dev)
     model = params = None
     if with_params is None:
         with_params = with_model

@@ -14,7 +14,8 @@ the CPU.
   counters, for the arena and for batched decode without it.
 * A port-only mobile run (``_mobile_spec``) hands requests over mid-stream
   and its arena run equals its serial run.
-* Options the port does not have yet are refused, never ignored.
+* Options the port does not have yet are refused, never ignored
+  (``calibration`` is ported: ``tests/test_torch_calib.py``).
 """
 import dataclasses
 import json
@@ -29,8 +30,8 @@ import repro.config as ref_config
 import repro_torch.sim.build as sim_build
 from repro.sim import Simulation as RefSimulation
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.sim import (CalibrationSpec, EngineSpec, ScenarioSpec,
-                             Simulation, TopologySpec, get_scenario)
+from repro_torch.sim import (EngineSpec, ScenarioSpec, Simulation,
+                             TopologySpec, get_scenario)
 from test_arena import _mobile_spec, _static_spec
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
@@ -216,8 +217,6 @@ def test_mobile_arena_equals_serial_under_handover():
         s.engine, trace="t.json")), "engine.trace"),
     (lambda s: dataclasses.replace(s, engine=dataclasses.replace(
         s.engine, timeline="t.jsonl")), "engine.timeline"),
-    (lambda s: dataclasses.replace(s, calibration=CalibrationSpec()),
-     "calibration"),
     (lambda s: dataclasses.replace(s, topology=TopologySpec(
         num_devices=8, num_edges=2, shards=2)), "topology.shards > 1"),
 ])
