@@ -93,7 +93,26 @@ order; any failure exits non-zero:
    (R^2 per kind) -> a planner on the raw fitted models, its plans beside
    phase 12's, and the table saved and loaded back equal.  These two
    phases launch none of the port's kernels: BranchyAlexNet's layers are
-   cuDNN convolutions and cuBLAS products, as the reference's are XLA ops.
+   cuDNN convolutions and cuBLAS products, as the reference's are XLA ops;
+14. training BranchyAlexNet, ``examples/train_branchy_alexnet.py``'s path:
+   five of the example's steps (BranchyNet joint loss, AdamW) card against
+   CPU with every dropout rate 0, each from the CPU's state, with
+   ``cudnn.deterministic`` on and off, and five run free; then 300 steps
+   of batch 64 with a failure injected at step 150 and the loop's restart
+   from the checkpoint of step 100, the joint loss by step, the steps/s,
+   the last checkpoint restored bit for bit, and the per-exit accuracy over
+   1024 held-out images (the counterpart of Fig. 4/9);
+15. training llama3.2-1b at full width and depth: its grads in float32 at
+   B1 S2048, the flash path (flash backward) against the dense one and
+   remat against none, per leaf; then ``launch/train.py --full``'s run
+   (bf16 parameters, f32 moments, remat, flash blocks of 1024, the CE in
+   chunks of 512), 6 steps of B4 S2048 with checkpoints every second step
+   and a failure injected at step 3, the weights changed, the bf16
+   checkpoint restored bit for bit; the median wall of 3 steps, tokens/s,
+   peak memory and the step's FLOPs, and, after phase 11's profiles, the
+   device idle share of one profiled step.  Training reaches none of the
+   port's kernels: the reference's training path reaches no
+   ``pl.pallas_call``, and the kernel wrappers refuse autograd.
 
 The line before the last is the JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
@@ -1630,6 +1649,408 @@ def calib_phase(torch, graph, static_plans):
     log(f"phase 13: table saved to {path.relative_to(ROOT)} and loaded back equal")
 
 
+# ---------------------------------------------------------------- phases 14-15
+# Training on the card.  Phase 14 is examples/train_branchy_alexnet.py's
+# path (BranchyNet joint training of BranchyAlexNet at the paper size, in
+# float32); phase 15 launch/train.py --full's (llama3.2-1b at full width and
+# depth in bfloat16 with float32 moments).  Stated tolerances:
+#  * phase 14, card against CPU, every dropout rate 0, TF32 off: each of
+#    ALEX_HOLD_STEPS example steps taken on both from the CPU's state before
+#    it, on the same batch: the joint loss within ALEX_LOSS_TOL, and every
+#    parameter and moment within 2 lr of the CPU's, all but one in
+#    ALEX_FAR_SHARE within ALEX_ATOL.  Adam divides each gradient by its
+#    running RMS, so an element whose gradient is near zero takes a step of
+#    up to lr in a direction rounding decides.  Run free from the same
+#    initial state, the two part further (a ReLU or a max-pool window near
+#    a tie switches on one side only): after ALEX_HOLD_STEPS steps every
+#    element within 2 lr a step, the distance logged;
+#  * phase 15, f32 at full width and depth, B1 S2048: per leaf, the grads
+#    of the flash path (impl "auto") within LM_GRAD_RTOL max|g| +
+#    LM_GRAD_ATOL of the dense path's, and with remat of those without;
+#  * every checkpoint restored on the card equal bit for bit.
+ALEX_TRAIN_STEPS, ALEX_TRAIN_BATCH, ALEX_FAIL_AT, ALEX_SAVE_EVERY = 300, 64, 150, 100
+ALEX_LR, ALEX_WD, ALEX_HOLD_STEPS = 1e-3, 1e-4, 5
+ALEX_LOSS_TOL, ALEX_ATOL, ALEX_FAR_SHARE = 1e-5, 1e-5, 1000
+LM_TRAIN = dict(steps=6, batch=4, seq=2049, save_every=2, inject_failure_at=3)
+LM_GRAD_RTOL, LM_GRAD_ATOL = 1e-4, 1e-6
+LM_TIMED_STEPS = 3
+#: leaves that stay ones under the --full recipe: bfloat16 spaces values
+#: near 1 by 2^-8 to 2^-7, far above the recipe's steps (lr <= 3e-4)
+NORM_LEAVES = ("ln", "final_norm", "exit_norms")
+
+
+def branchy_step(torch, net, params, opt, x, y, gen):
+    """The example's step: the joint loss over every exit, its backward,
+    AdamW at lr 1e-3 and weight decay 1e-4."""
+    from repro_torch import tree as T
+    from repro_torch.optim import adamw_update
+    params = T.tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = net.loss(params, (x, y), gen)
+    loss.backward()
+    grads = T.tree_map(lambda p: p.grad, params)
+    params, opt = adamw_update(grads, opt, params, lr=ALEX_LR, weight_decay=ALEX_WD)
+    return params, opt, loss.detach()
+
+
+def state_to(torch, state, device):
+    from repro_torch import tree as T
+    return T.tree_map(lambda t: t.detach().to(device, copy=True), state)
+
+
+def held_adam_step(torch, label, got, want):
+    """Every element of ``got`` within 2 lr of ``want``, all but one in
+    ALEX_FAR_SHARE within ALEX_ATOL; returns (max |diff|, elements beyond
+    ALEX_ATOL, elements)."""
+    from repro_torch import tree as T
+    worst, far, n = 0.0, 0, 0
+    for (key, g), w in zip(T.leaves_with_paths(got), T.leaves(want)):
+        err = (g.detach().float().cpu() - w.detach().float().cpu()).abs()
+        require(bool(torch.isfinite(g).all()), f"{label} {key}: non-finite values")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        far += int((err > ALEX_ATOL).sum())
+        n += err.numel()
+    return worst, far, n
+
+
+def bits_equal(torch, a, b):
+    from repro_torch import tree as T
+    la, lb = T.leaves_with_paths(a), T.leaves_with_paths(b)
+    return [k for (k, x), (_, y) in zip(la, lb)
+            if x.dtype != y.dtype or x.shape != y.shape
+            or not torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                               y.view(torch.int16) if y.dtype == torch.bfloat16 else y)]
+
+
+def branchy_train_phase(torch):
+    """Phase 14: examples/train_branchy_alexnet.py on the card."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.configs import get_alexnet_config
+    from repro_torch.data.synthetic import cifar_like
+    from repro_torch.models.alexnet import BranchyAlexNet
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.fault_tolerance import FailureInjector, ResilientLoop
+
+    # -- card against CPU, every dropout rate 0 (set on the net's own specs)
+    net0 = BranchyAlexNet(get_alexnet_config())
+
+    def no_drop(specs):
+        return [dataclasses.replace(sp, drop_rate=0.0) if sp.kind == "dropout" else sp
+                for sp in specs]
+    net0.main = no_drop(net0.main)
+    net0.sides = [(prefix, no_drop(side)) for prefix, side in net0.sides]
+    t0 = time.perf_counter()
+    p_cpu = net0.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [tuple(torch.from_numpy(a) for a in cifar_like(rng, ALEX_TRAIN_BATCH,
+                                                               noise=ALEX_NOISE))
+               for _ in range(ALEX_HOLD_STEPS)]
+    cpu_states, cpu_losses = [(p_cpu, adamw_init(p_cpu))], []
+    gen_cpu = torch.Generator().manual_seed(0)
+    for x, y in batches:
+        p, o, loss = branchy_step(torch, net0, *cpu_states[-1], x, y, gen_cpu)
+        cpu_states.append((p, o))
+        cpu_losses.append(float(loss))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    held = {}
+    for det in (True, False):
+        torch.backends.cudnn.deterministic = det
+        worst = far = n = 0
+        for i, (x, y) in enumerate(batches):
+            p, o, loss = branchy_step(torch, net0, *state_to(torch, cpu_states[i], "cuda"),
+                                      x.cuda(), y.cuda(), gen)
+            require(abs(float(loss) - cpu_losses[i]) <= ALEX_LOSS_TOL,
+                    f"phase 14: step {i} joint loss {float(loss)!r} against the CPU's "
+                    f"{cpu_losses[i]!r}")
+            w, f, m = held_adam_step(torch, f"phase 14 step {i}", (p, o.mu, o.nu),
+                                     (cpu_states[i + 1][0], cpu_states[i + 1][1].mu,
+                                      cpu_states[i + 1][1].nu))
+            worst, far, n = max(worst, w), far + f, n + m
+        held[det] = (worst, far, n, p)
+        require(worst <= 2 * ALEX_LR and far <= n // ALEX_FAR_SHARE,
+                f"phase 14: card against CPU (cudnn.deterministic={det}): max |diff| "
+                f"{worst:.3e}, {far} of {n} elements beyond {ALEX_ATOL}")
+        log(f"phase 14: {ALEX_HOLD_STEPS} example steps card against CPU from the CPU's "
+            f"state, dropout rate 0, cudnn.deterministic={det}: joint losses within "
+            f"{ALEX_LOSS_TOL}; params and moments max |diff| {worst:.3e}, {far} of {n} "
+            f"elements beyond {ALEX_ATOL}")
+    torch.backends.cudnn.deterministic = False
+    same = not bits_equal(torch, held[True][3], held[False][3])
+    log(f"phase 14: the last held step's params with cudnn.deterministic on and off "
+        f"{'equal bit for bit' if same else 'differ'}")
+    state = state_to(torch, cpu_states[0], "cuda")
+    for x, y in batches:
+        state = branchy_step(torch, net0, *state, x.cuda(), y.cuda(), gen)[:2]
+    worst = held_adam_step(torch, "phase 14 free run", state, cpu_states[-1])[0]
+    require(worst <= 2 * ALEX_LR * ALEX_HOLD_STEPS,
+            f"phase 14: free-running card and CPU {worst:.3e} apart after "
+            f"{ALEX_HOLD_STEPS} steps")
+    log(f"phase 14: run free from the same initial state for {ALEX_HOLD_STEPS} steps, "
+        f"card and CPU end {worst:.3e} apart at most (bound {2 * ALEX_LR * ALEX_HOLD_STEPS}); "
+        f"the holds took {time.perf_counter() - t0:.1f} s")
+
+    # -- the example: 300 steps with a failure injected at 150
+    net = BranchyAlexNet(get_alexnet_config())
+    params = net.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    opt = adamw_init(params)
+    data_rng = np.random.default_rng(0)
+    drop_gen = torch.Generator(device="cuda").manual_seed(0)
+    ckdir = ROOT / "build" / "ckpt_branchy_alexnet"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckpt = CheckpointManager(str(ckdir))
+    loop = ResilientLoop(ckpt, save_every=ALEX_SAVE_EVERY)
+    losses, restarts_at = {}, []
+
+    def step_fn(state, i):
+        x, y = cifar_like(data_rng, ALEX_TRAIN_BATCH, noise=ALEX_NOISE)
+        p, o, loss = branchy_step(torch, net, *state, torch.from_numpy(x).cuda(),
+                                  torch.from_numpy(y).cuda(), drop_gen)
+        if i % 50 == 0 or i == ALEX_TRAIN_STEPS - 1:
+            losses[i] = float(loss)
+        return p, o
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (params, opt), info = loop.run((params, opt), step_fn, ALEX_TRAIN_STEPS,
+                                   injector=FailureInjector(fail_at=(ALEX_FAIL_AT,)),
+                                   on_restart=restarts_at.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = ALEX_TRAIN_STEPS + ALEX_FAIL_AT - restarts_at[0] if restarts_at else ALEX_TRAIN_STEPS
+    require(info == {"restarts": 1, "final_step": ALEX_TRAIN_STEPS},
+            f"phase 14: loop info {info}")
+    require(all(math.isfinite(v) for v in losses.values())
+            and losses[ALEX_TRAIN_STEPS - 1] < losses[0],
+            f"phase 14: joint loss did not fall: {losses}")
+    log(f"phase 14: {ALEX_TRAIN_STEPS} steps, batch {ALEX_TRAIN_BATCH}, noise {ALEX_NOISE}, "
+        f"failure injected at step {ALEX_FAIL_AT}, resumed at {restarts_at}: "
+        f"{info['restarts']} restart; joint loss by step "
+        f"{ {k: round(v, 4) for k, v in sorted(losses.items())} }; {run} steps run in "
+        f"{wall:.2f} s ({run / wall:.1f} steps/s, checkpoints included)")
+    back, step = ckpt.restore((params, opt))
+    bad = bits_equal(torch, back, (params, opt))
+    require(step == ALEX_TRAIN_STEPS and not bad,
+            f"phase 14: checkpoint of step {step} restored unequal: {bad[:5]}")
+    xv, yv = cifar_like(np.random.default_rng(ALEX_DATA_SEED), ALEX_IMAGES, noise=ALEX_NOISE)
+    xv, yv = torch.from_numpy(xv).cuda(), torch.from_numpy(yv).cuda()
+    with torch.no_grad():
+        acc = {e: float(net.accuracy(params, xv, yv, e)) for e in range(1, net.num_exits + 1)}
+        final = float(net.loss(params, (xv, yv), drop_gen))
+    require(all(math.isfinite(a) for a in acc.values()) and math.isfinite(final),
+            f"phase 14: accuracy {acc}, loss {final}")
+    log(f"phase 14: checkpoint of step {step} restored on the card bit for bit; "
+        f"per-exit accuracy over {ALEX_IMAGES} held-out images (seed {ALEX_DATA_SEED}): "
+        + ", ".join(f"exit {e} ({len(net.branch_layers(e))} layers) {a:.3f}"
+                    for e, a in acc.items())
+        + f"; the joint loss on them (dropout on) {final:.4f}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def lm_train_flops(cfg, B, S, remat):
+    """FLOPs of one train step as the code runs it: the projections
+    forward, again under remat, and twice backward; flash attention at
+    every block (none pruned), forward (again under remat) and a backward
+    of five products; the tied-head CE of every exit forward, again under
+    its checkpoint, and twice backward."""
+    d, hd, L_ = cfg.d_model, cfg.hd, cfg.num_layers
+    h, kv = cfg.padded_heads, cfg.num_kv_heads
+    per_layer = d * h * hd * 2 + d * kv * hd * 2 + 3 * d * cfg.d_ff
+    tokens = B * S
+    matmul = 2 * per_layer * L_ * tokens * (4 if remat else 3)
+    attn_prod = 2 * B * h * S * S * hd                     # one product over all blocks
+    attn = L_ * attn_prod * (2 * (2 if remat else 1) + 5)
+    from repro_torch.models.transformer import segment_lengths
+    ce = len(segment_lengths(cfg)) * 2 * tokens * d * cfg.padded_vocab * 4
+    return {"matmul": matmul, "attention": attn, "ce": ce, "total": matmul + attn + ce}
+
+
+def lm_train_phase(torch):
+    """Phase 15: llama3.2-1b trained at full width and depth through
+    launch/train.py --full's recipe, after the f32 holds of its grads.
+    Returns the numbers the end-of-run profile needs."""
+    import shutil
+
+    from repro_torch import tree as T
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import Model
+
+    cfg = get_config(LLAMA)
+    model = Model(cfg)
+
+    # -- f32 holds at B1 S2048: flash against dense, remat against none
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.float32, device="cuda")
+    leaves = [p.requires_grad_() for p in T.leaves(params)]
+    keys = [k for k, _ in T.leaves_with_paths(params)]
+    tokens = torch.from_numpy(next(token_batches(0, 1, LM_TRAIN["seq"], cfg.vocab_size)))
+    batch = {"tokens": tokens.cuda()}
+
+    def grads(impl, remat):
+        loss, _ = model.loss(params, batch, remat=remat, attn_impl=impl)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    def held(label, got, want):
+        worst = (0.0, "")
+        for k, g, w in zip(keys, got, want):
+            tol = LM_GRAD_RTOL * float(w.abs().max()) + LM_GRAD_ATOL
+            err = float((g - w).abs().max())
+            require(math.isfinite(err) and err <= tol,
+                    f"phase 15: {label}: {k} max |diff| {err:.3e} > {tol:.3e}")
+            worst = max(worst, (err / tol, k))
+        log(f"phase 15: {label}: every leaf within {LM_GRAD_RTOL} max|g| + {LM_GRAD_ATOL}; "
+            f"worst leaf {worst[1]} at {worst[0]:.3e} of its tolerance"
+            + ("" if worst[0] else " (every leaf equal bit for bit)"))
+
+    l_dense, g_dense = grads("dense", False)
+    l_flash, g_flash = grads("auto", False)
+    held("f32 B1 S2048 grads, flash (auto) against dense", g_flash, g_dense)
+    del g_dense
+    l_remat, g_remat = grads("auto", True)
+    held("f32 B1 S2048 grads, remat against none (flash)", g_remat, g_flash)
+    log(f"phase 15: f32 losses dense {l_dense:.6f}, flash {l_flash:.6f}, flash + remat "
+        f"{l_remat:.6f}; the holds took {time.perf_counter() - t0:.1f} s")
+    del params, leaves, g_flash, g_remat
+    torch.cuda.empty_cache()
+
+    # -- launch/train.py --full: bf16 params, f32 moments, remat, flash, CE chunks
+    ckdir = ROOT / "build" / "ckpt_llama"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = train_mod.train(LLAMA, smoke=False, ckpt_dir=ckdir, device="cuda", **LM_TRAIN)
+    wall = time.perf_counter() - t0
+    info, losses = out["info"], out["losses"]
+    require(info == {"restarts": 1, "final_step": LM_TRAIN["steps"]},
+            f"phase 15: loop info {info}")
+    require(len(losses) == LM_TRAIN["steps"] + 1 and all(math.isfinite(v) for v in losses),
+            f"phase 15: losses {losses}")
+    t_chk = time.perf_counter()
+    init = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             dtype=torch.bfloat16, device="cuda")
+    changed = {k: float((a != b).float().mean())
+               for (k, a), b in zip(T.leaves_with_paths(out["params"]), T.leaves(init))}
+    frozen = [k for k, v in changed.items() if v == 0.0]
+    require(all(k.split("/")[-1] in NORM_LEAVES for k in frozen),
+            f"phase 15: weights left unchanged: {frozen}")
+    log(f"phase 15: {LM_TRAIN['steps']} steps of B{LM_TRAIN['batch']} x "
+        f"{LM_TRAIN['seq'] - 1} tokens, failure injected at step "
+        f"{LM_TRAIN['inject_failure_at']}: {info['restarts']} restart; losses "
+        f"{[round(v, 4) for v in losses]}; {len(losses)} steps in {wall:.1f} s with "
+        f"checkpoints of every second step (the loop {out['seconds']:.1f} s; the check of "
+        f"the weights {time.perf_counter() - t_chk:.1f} s); share of elements changed by leaf "
+        f"{ {k: round(v, 4) for k, v in changed.items()} }; unchanged leaves "
+        f"(RMSNorm weights at 1.0 in bf16): {frozen}")
+    del init
+    t0 = time.perf_counter()
+    back, step = CheckpointManager(str(ckdir)).restore((out["params"], out["opt"]))
+    bad = bits_equal(torch, back, (out["params"], out["opt"]))
+    require(step == LM_TRAIN["steps"] and not bad,
+            f"phase 15: checkpoint of step {step} restored unequal: {bad[:5]}")
+    log(f"phase 15: bf16 checkpoint of step {step} restored on the card bit for bit "
+        f"({sum(t.numel() * t.element_size() for t in T.leaves(back)) / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del back
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    # -- step walls, before any profiler session
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"] - 1
+    step = make_train_step(model, ShapeConfig("phase15", LM_TRAIN["seq"], B, "train"),
+                           device="cuda", remat=True, ce_chunk=512)
+    state = (out["params"], out["opt"])
+    del out
+    data = token_batches(1, B, LM_TRAIN["seq"], cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(next(data)).cuda()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(LM_TIMED_STEPS + 1):
+        t0 = time.perf_counter()
+        p, o, m = step(*state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        state = (p, o)
+        del p, o
+    peak = torch.cuda.max_memory_allocated()
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+                             "temperature.gpu", "--format=csv,noheader"],
+                            capture_output=True, text=True, timeout=60).stdout.strip()
+    wall = statistics.median(walls[1:])
+    flops = lm_train_flops(cfg, B, S, remat=True)
+    log(f"phase 15: train step B{B} S{S}: median wall {wall * 1e3:.1f} ms of "
+        f"{[round(w * 1e3, 1) for w in walls[1:]]} (warm-up {walls[0] * 1e3:.1f} ms), "
+        f"{B * S / wall:.0f} tokens/s, peak memory {peak / 1e9:.2f} GB; FLOPs a step "
+        f"{flops['total']:.4g} (projections {flops['matmul']:.4g}, attention "
+        f"{flops['attention']:.4g}, CE {flops['ce']:.4g}) = {flops['total'] / wall / 1e12:.1f} "
+        f"TFLOP/s; after them clocks.sm, clocks.max.sm, power.draw, temperature {clocks}")
+    del state, step
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "flops": flops["total"]}
+
+
+def lm_train_profile(torch, walls):
+    """Phase 15's device idle share: one train step under one profiler
+    session, against the median wall phase 15 took before any session.
+    The process is warm from phase 15, so no step runs first: the
+    allocator's growth in this one shows in its wall, not in the device's
+    kernel time, which is what the share reads."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.api import Model
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(LLAMA)
+    model = Model(cfg)
+    B = LM_TRAIN["batch"]
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.bfloat16, device="cuda")
+    state = (params, adamw_init(params))
+    del params
+    step = make_train_step(model, ShapeConfig("phase15", LM_TRAIN["seq"], B, "train"),
+                           device="cuda", remat=True, ce_chunk=512)
+    batch = {"tokens": torch.from_numpy(
+        next(token_batches(1, B, LM_TRAIN["seq"], cfg.vocab_size))).cuda()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = step(*state, batch)[:2]
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and e.self_device_time_total > 0]
+    dev = sum(e.self_device_time_total for e in kernels) / 1e6
+    require(dev > 0, "phase 15: no device time traced")
+    by_kind = {}
+    for e in kernels:
+        name = e.key.lower()
+        kind = ("products" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass"))
+                else "reductions" if "reduce" in name
+                else "elementwise" if "elementwise" in name else "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"phase 15: profiled train step: {dev * 1e3:.1f} ms of kernels on the device "
+        f"({sum(e.count for e in kernels)} launches), idle share "
+        f"{1 - dev / walls['wall_s']:.3f} of the {walls['wall_s'] * 1e3:.1f} ms wall "
+        f"({traced_wall * 1e3:.1f} ms under the profiler); device FLOP rate "
+        f"{walls['flops'] / dev / 1e12:.1f} TFLOP/s; device ms by kind "
+        f"{ {k: round(v, 1) for k, v in sorted(by_kind.items())} }; top kernels "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
+                    for e in top))
+    del state, step
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1710,7 +2131,27 @@ def main() -> int:
     del timer, probe
     torch.cuda.empty_cache()
 
+    # -- 14-15 training on the card, its walls too before any profiler
+    #    session; the host time of one small launch is logged before and
+    #    after them, as around phases 12-13
+    timer = Timer(torch)
+    probe = torch.zeros(1, device="cuda")
+    launch_us = timer.host_us(lambda: probe.add_(1.0))
+    t14 = time.perf_counter()
+    branchy_train_phase(torch)
+    t15 = time.perf_counter()
+    lm_walls = lm_train_phase(torch)
+    t_end = time.perf_counter()
+    log(f"chip_smoke: host time of one launch {launch_us:.2f} us before phases 14-15, "
+        f"{timer.host_us(lambda: probe.add_(1.0)):.2f} us after")
+    del timer, probe
+    torch.cuda.empty_cache()
+
     arena_profile(torch, (LLAMA, ZAMBA))
+    t_prof = time.perf_counter()
+    lm_train_profile(torch, lm_walls)
+    log(f"chip_smoke: phase 14 took {t15 - t14:.1f} s, phase 15 {t_end - t15:.1f} s "
+        f"and its profile {time.perf_counter() - t_prof:.1f} s")
     log(f"launches over the served paths: {launches}")
 
     sources = {
@@ -1734,7 +2175,7 @@ def main() -> int:
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": t["shape"], "dtype": t["dtype"],
                         **({"at_arena": at_arena[name]} if name in at_arena else {})})
-    log(f"chip_smoke: phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-15 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

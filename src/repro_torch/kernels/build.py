@@ -165,6 +165,18 @@ def require_aligned(name: str, t: torch.Tensor) -> None:
             f"{t.stride()}")
 
 
+def refuse_autograd(name: str, *ts) -> None:
+    """The kernels have no backward, and a launch fills a fresh tensor that
+    autograd does not see: under grad mode a wrapper refuses every input
+    that requires grad.  It refuses on the CPU too, where its plain version
+    would differentiate, so that the CPU tests see what the card does."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: the port's kernels have no backward and refuse inputs that "
+            "require grad; train through impl='auto' (the flash backward), not "
+            "impl='kernel'")
+
+
 def require_cuda(*ts: torch.Tensor) -> None:
     dev = ts[0].device
     for t in ts:

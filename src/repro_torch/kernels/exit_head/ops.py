@@ -3,7 +3,9 @@
 A CPU tensor goes to the plain version in :mod:`.ref`.  A CUDA tensor goes
 to the two-pass kernel in ``csrc/exit_head.cu`` (vocab chunks, then a
 per-row merge), or the wrapper raises: there is no fallback.  Each call
-launches the kernel once and adds one to :data:`LAUNCHES`.
+launches the kernel once and adds one to :data:`LAUNCHES`.  The kernel has
+no backward: under grad mode the wrapper refuses inputs that require grad,
+on the CPU too (:func:`build.refuse_autograd`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ def exit_confidence(h, emb):
     """h: [B, S, D] exit-normed hidden; emb: [V, D].
     Returns dict(token [B,S] i32, conf [B,S] f32, entropy [B,S] f32) — the
     contract of :func:`repro_torch.kernels.exit_head.ref.exit_confidence`."""
+    build.refuse_autograd("exit_confidence", h, emb)
     if h.device.type == "cpu":
         return ref.exit_confidence(h, emb)
     build.require_cuda(h, emb)

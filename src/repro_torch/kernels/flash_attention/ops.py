@@ -9,6 +9,8 @@ A CPU tensor goes to the plain version in :mod:`.ref` (transposed to its
 head-major layout and back).  A CUDA tensor goes to the kernel in
 ``csrc/flash_attention.cu`` / ``csrc/decode_attention.cu``, or the wrapper
 raises: there is no fallback.  Each launch adds one to :data:`LAUNCHES`.
+Neither has a backward: under grad mode both refuse inputs that require
+grad, on the CPU too (:func:`build.refuse_autograd`).
 
 Head dims are :data:`HEAD_DIMS`; both kernels are instantiated for each
 (64 and 128 for the dense models, 80 for zamba2's shared attention), and any
@@ -57,6 +59,7 @@ def _tickets(device, stream: int, n: int) -> torch.Tensor:
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: [B, S, H, hd]; k/v: [B, T, KV, hd] -> [B, S, H, hd] (q's dtype)."""
+    build.refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal).transpose(1, 2)
@@ -87,6 +90,7 @@ def decode_attention(q, k, v, lengths):
     """q: [B, 1, H, hd]; k/v: [B, T, KV, hd]; lengths: [B] int32 ->
     [B, 1, H, hd].  Row ``b`` attends over its first ``lengths[b]`` keys; a
     zero-length row returns zeros."""
+    build.refuse_autograd("decode_attention", q, k, v)
     B, S, H, hd = q.shape
     build.require(S == 1, f"decode attention is single-query: got S={S}")
     if q.device.type == "cpu":

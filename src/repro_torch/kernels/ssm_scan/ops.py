@@ -26,6 +26,8 @@ fallback, and a launch that fails is never retried on the other kernel.
 
 Each launch adds one to ``LAUNCHES["ssm_scan"]`` and one to the count of
 its kernel, ``LAUNCHES["ssm_scan.chunked"]`` or ``["ssm_scan.stepped"]``.
+Neither kernel has a backward: under grad mode the wrapper refuses inputs
+that require grad, on the CPU too (:func:`build.refuse_autograd`).
 """
 from __future__ import annotations
 
@@ -92,6 +94,7 @@ def tma_operands(q, k, v, lw, rwkv):
 def ssm_scan(q, k, v, log_w, state, u=None):
     """Returns (o [B,S,H,dv] in v's dtype, final state [B,H,dk,dv] f32);
     see :func:`repro_torch.kernels.ssm_scan.ref.ssm_scan`."""
+    build.refuse_autograd("ssm_scan", q, k, v, log_w, state, u)
     if q.device.type == "cpu":
         return ref.ssm_scan(q, k, v, log_w, state, u=u)
     build.require_cuda(q, k, v, log_w, state, *(() if u is None else (u,)))

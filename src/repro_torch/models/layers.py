@@ -5,10 +5,17 @@ Plain functions over parameter dicts of tensors, mirroring
 ``src/repro/models/layers.py``.  Weights keep the reference's ``[in, out]``
 layout, so every projection is ``x @ W`` as there.
 
-``impl`` selects attention: ``"kernel"`` (the default) runs the port's
-kernels through their wrappers — the CUDA kernels for a CUDA tensor, their
-plain versions for a CPU tensor; ``"dense"`` runs the reference's masked
-dense ``_sdpa`` in plain PyTorch.
+``impl`` selects attention: ``"kernel"`` (the default, the serving path)
+runs the port's kernels through their wrappers — the CUDA kernels for a
+CUDA tensor, their plain versions for a CPU tensor; the wrappers have no
+backward and refuse autograd.  The reference's training choices are plain
+PyTorch with a backward: ``"dense"`` (its masked dense ``_sdpa``),
+``"flash"`` and ``"flash@N"`` (:func:`flash_attention_fused`, blocks of
+1024 or N, with the flash backward), ``"flash_novjp"``
+(:func:`flash_attention_jnp`, the same blocks under plain autograd) and
+``"auto"`` (``"flash"`` when S·T > 1024², ``"dense"`` otherwise).  A cached
+decode takes the decode kernel for ``"kernel"`` and ``_sdpa`` for every
+other choice, as the reference.
 """
 from __future__ import annotations
 
@@ -21,7 +28,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
-IMPLS = ("kernel", "dense")
+IMPLS = ("kernel", "auto", "flash", "flash_novjp", "dense")
+#: flash block size (``"flash@N"`` sets another)
+FLASH_BLOCK = 1024
 
 
 def dense_init(generator, shape, dtype, fan_in, device):
@@ -157,6 +166,149 @@ def _write_cache(buf, val, cache_pos, mask=None):
         buf[rows, idx] = new
 
 
+def _flash_fwd_blocks(q, k, v, *, causal, q_block, kv_block):
+    """Blocked online-softmax attention returning (o, lse), the reference's
+    ``_flash_fwd_blocks``: q [B,S,H,hd], k/v [B,T,KV,hd]; o [B,S,H,hd] in
+    q's dtype, lse [B,S,H] float32.  Scores come from a product in the
+    input dtype, cast to float32; a causal block masks key j > query i
+    with the finite NEG_INF (every block is computed, none pruned), and the
+    running max, sum and output accumulate in float32."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qb, kb = min(q_block, S), min(kv_block, T)
+    if S % qb or T % kb:
+        raise ValueError(f"flash blocks ({qb}, {kb}) do not divide S={S}, T={T}")
+    nq, nk = S // qb, T // kb
+    scale = 1.0 / math.sqrt(hd)
+    qr = q.reshape(B, nq, qb, KV, G, hd)
+    kr = k.reshape(B, nk, kb, KV, hd)
+    vr = v.reshape(B, nk, kb, KV, hd)
+    outs, lses = [], []
+    for qi in range(nq):
+        qc = qr[:, qi]                                   # [B,qb,KV,G,hd]
+        m = torch.full((B, KV, G, qb), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, KV, G, qb), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, KV, G, qb, hd), dtype=torch.float32, device=q.device)
+        for kj in range(nk):
+            kc, vc = kr[:, kj], vr[:, kj]                # [B,kb,KV,hd]
+            s = torch.einsum("bqkgd,btkd->bkgqt", qc, kc).float() * scale
+            if causal:
+                s = _causal_block_mask(s, qi, kj, qb, kb)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p.to(vc.dtype), vc).float()
+            m = m_new
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l[..., None]).to(q.dtype))   # [B,KV,G,qb,hd]
+        lses.append(m + torch.log(l))                     # [B,KV,G,qb]
+    o = torch.stack(outs, 1).permute(0, 1, 4, 2, 3, 5).reshape(B, S, H, hd)
+    lse = torch.stack(lses, 1).permute(0, 1, 4, 2, 3).reshape(B, S, H)
+    return o, lse
+
+
+def _causal_block_mask(s, qi, kj, qb, kb):
+    """Mask key j > query i in the score block (qi, kj) [..., qb, kb]."""
+    qpos = qi * qb + torch.arange(qb, device=s.device)
+    kpos = kj * kb + torch.arange(kb, device=s.device)
+    return torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+
+
+def _flash_bwd(q, k, v, o, lse, do, *, causal, q_block, kv_block):
+    """The reference's ``_flash_bwd_rule``: each block's probabilities are
+    recomputed from lse, ``D = sum(do * o)``, and dq, dk, dv accumulate in
+    float32 from float32 products, cast to the inputs' dtypes at the end."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qb, kb = min(q_block, S), min(kv_block, T)
+    nq, nk = S // qb, T // kb
+    scale = 1.0 / math.sqrt(hd)
+    f = torch.float32
+    qr = q.reshape(B, nq, qb, KV, G, hd).permute(1, 0, 3, 4, 2, 5).to(f)   # [nq,B,KV,G,qb,hd]
+    dor = do.reshape(B, nq, qb, KV, G, hd).permute(1, 0, 3, 4, 2, 5).to(f)
+    Dr = torch.sum(do.to(f) * o.to(f), dim=-1)
+    Dr = Dr.reshape(B, nq, qb, KV, G).permute(1, 0, 3, 4, 2)               # [nq,B,KV,G,qb]
+    lser = lse.reshape(B, nq, qb, KV, G).permute(1, 0, 3, 4, 2)
+    kr = k.reshape(B, nk, kb, KV, hd).permute(1, 0, 3, 2, 4).to(f)        # [nk,B,KV,kb,hd]
+    vr = v.reshape(B, nk, kb, KV, hd).permute(1, 0, 3, 2, 4).to(f)
+    dq = 0
+    dks, dvs = [], []
+    for kj in range(nk):
+        kc, vc = kr[kj], vr[kj]
+        dk_acc = torch.zeros((B, KV, kb, hd), dtype=f, device=q.device)
+        dv_acc = torch.zeros((B, KV, kb, hd), dtype=f, device=q.device)
+        dq_blocks = []
+        for qi in range(nq):
+            qc, doc, Dc, lsec = qr[qi], dor[qi], Dr[qi], lser[qi]
+            s = torch.einsum("bkgqd,bktd->bkgqt", qc, kc) * scale
+            if causal:
+                s = _causal_block_mask(s, qi, kj, qb, kb)
+            p = torch.exp(s - lsec[..., None])                             # [B,KV,G,qb,kb]
+            dv_acc = dv_acc + torch.einsum("bkgqt,bkgqd->bktd", p, doc)
+            dp = torch.einsum("bkgqd,bktd->bkgqt", doc, vc)
+            ds = p * (dp - Dc[..., None]) * scale
+            dq_blocks.append(torch.einsum("bkgqt,bktd->bkgqd", ds, kc))
+            dk_acc = dk_acc + torch.einsum("bkgqt,bkgqd->bktd", ds, qc)
+        dq = dq + torch.stack(dq_blocks)                                   # [nq,B,KV,G,qb,hd]
+        dks.append(dk_acc)
+        dvs.append(dv_acc)
+    dq = dq.permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, hd)
+    dk = torch.stack(dks).permute(1, 0, 3, 2, 4).reshape(B, T, KV, hd)
+    dv = torch.stack(dvs).permute(1, 0, 3, 2, 4).reshape(B, T, KV, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_block, kv_block):
+        o, lse = _flash_fwd_blocks(q, k, v, causal=causal, q_block=q_block,
+                                   kv_block=kv_block)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.blocks = (causal, q_block, kv_block)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        causal, q_block, kv_block = ctx.blocks
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, do, causal=causal,
+                                q_block=q_block, kv_block=kv_block)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_fused(q, k, v, causal=True, q_block=FLASH_BLOCK,
+                          kv_block=FLASH_BLOCK):
+    """Flash attention with a flash *backward* (the reference's custom_vjp,
+    here a :class:`torch.autograd.Function`): the forward saves (q, k, v,
+    o, lse) and the backward recomputes each block's probabilities from
+    them, instead of autograd saving every probability block."""
+    return _FlashFused.apply(q, k, v, causal, q_block, kv_block)
+
+
+def flash_attention_jnp(q, k, v, *, causal=True, q_block=FLASH_BLOCK,
+                        kv_block=FLASH_BLOCK):
+    """The same blocked attention under plain autograd, which saves every
+    probability block for the backward: the reference's function of this
+    name, its ``"flash_novjp"`` baseline.  q: [B,S,H,hd]; k/v:
+    [B,T,KV,hd]."""
+    return _flash_fwd_blocks(q, k, v, causal=causal, q_block=q_block,
+                             kv_block=kv_block)[0]
+
+
+def _resolve_impl(impl: str, S: int, T: int):
+    """(impl, flash block) of a non-cached attention: ``"auto"`` is
+    ``"flash"`` when S·T > 1024², else ``"dense"``; ``"flash@N"`` is
+    ``"flash"`` with blocks of N."""
+    if impl == "auto":
+        impl = "flash" if S * T > 1024 * 1024 else "dense"
+    if impl.startswith("flash@"):
+        return "flash", int(impl.split("@", 1)[1])
+    return impl, FLASH_BLOCK
+
+
 def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
               kv_cache=None, cache_pos=None, lengths=None, impl="kernel",
               prefill_mode=False, write_mask=None):
@@ -177,8 +329,8 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
     When ``cfg.padded_heads > cfg.num_heads`` the padding query heads are
     masked to zero before the output projection.
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl not in IMPLS and not impl.startswith("flash@"):
+        raise ValueError(f"impl must be one of {IMPLS} or flash@N, got {impl!r}")
 
     def _mask_pad_heads(out, h):
         if h == cfg.num_heads:
@@ -216,8 +368,13 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
                 out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), bias)
             out = _mask_pad_heads(out, h)
             return out.reshape(B, S, h * hd) @ p["wo"], new_cache
+    impl, blk = _resolve_impl(impl, S, S)
     if impl == "kernel":
         out = fa_ops.flash_attention(q, k, v, causal=causal)
+    elif impl == "flash":
+        out = flash_attention_fused(q, k, v, causal, blk, blk)
+    elif impl == "flash_novjp":
+        out = flash_attention_jnp(q, k, v, causal=causal)
     else:
         bias = causal_bias(S, S, device=x.device) if causal else 0.0
         out = _sdpa(q, k, v, bias)

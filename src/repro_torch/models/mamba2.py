@@ -76,7 +76,7 @@ def _causal_conv(x, w, conv_state=None):
 
 
 def block(p, cfg: ModelConfig, x, state, conv_state=None, *, mode="auto",
-          impl="kernel"):
+          impl="kernel", chunk=16):
     """x: [B,S,D]; state: [B,Hm,N,DH] f32 (k-dim=N, v-dim=DH).
     Returns (out, new_state, new_conv_state)."""
     B, S, D = x.shape
@@ -95,7 +95,7 @@ def block(p, cfg: ModelConfig, x, state, conv_state=None, *, mode="auto",
     k = Bc[:, :, None, :].expand(B, S, hm, n).to(xi.dtype)
     q = Cc[:, :, None, :].expand(B, S, hm, n).to(xi.dtype)
     y, new_state = linear_scan(q, k, xh, log_w, state, u=None, mode=mode,
-                               impl=impl)                              # [B,S,Hm,DH]
+                               chunk=chunk, impl=impl)                 # [B,S,Hm,DH]
     y = y + xi.reshape(B, S, hm, DH) * p["D"][:, None].to(xi.dtype)
     y = y.reshape(B, S, di)
     y = rms_norm(y, p["gn"], cfg.norm_eps) * F.silu(z)

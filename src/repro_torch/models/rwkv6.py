@@ -57,7 +57,8 @@ def _shift(x, last):
     return torch.cat([last, x[:, :-1]], dim=1)
 
 
-def time_mix(p, cfg: ModelConfig, x, state, last, *, mode="auto", impl="kernel"):
+def time_mix(p, cfg: ModelConfig, x, state, last, *, mode="auto", impl="kernel",
+             chunk=16):
     """x: [B,S,D]; state: [B,H,hd,hd] f32; last: [B,1,D] previous token.
     Returns (out, new_state, new_last)."""
     B, S, D = x.shape
@@ -74,7 +75,8 @@ def time_mix(p, cfg: ModelConfig, x, state, last, *, mode="auto", impl="kernel")
     ddw = torch.tanh(xw @ p["wA"]) @ p["wB"]
     log_w = -torch.exp(torch.clamp(p["w0"] + ddw.float(), -20.0, 3.0))
     log_w = log_w.reshape(B, S, H, hd)
-    o, new_state = linear_scan(r, k, v, log_w, state, u=p["u"], mode=mode, impl=impl)
+    o, new_state = linear_scan(r, k, v, log_w, state, u=p["u"], mode=mode,
+                               chunk=chunk, impl=impl)
     # group norm over heads (population variance, as jnp.var)
     og = o.reshape(B, S, H, hd)
     og = (og - og.mean(-1, keepdim=True)) * torch.rsqrt(
@@ -92,9 +94,11 @@ def channel_mix(p, cfg: ModelConfig, x, last):
     return torch.sigmoid(xr @ p["cm_r"]) * (k @ p["cm_v"]), xn[:, -1:, :]
 
 
-def block(p, cfg: ModelConfig, x, state, lasts, *, mode="auto", impl="kernel"):
+def block(p, cfg: ModelConfig, x, state, lasts, *, mode="auto", impl="kernel",
+          chunk=16):
     """One RWKV layer.  ``lasts`` = (last_tm, last_cm) each [B,1,D]."""
-    tm, new_state, l1 = time_mix(p, cfg, x, state, lasts[0], mode=mode, impl=impl)
+    tm, new_state, l1 = time_mix(p, cfg, x, state, lasts[0], mode=mode, impl=impl,
+                                 chunk=chunk)
     x = x + tm
     cm, l2 = channel_mix(p, cfg, x, lasts[1])
     return x + cm, new_state, (l1, l2)

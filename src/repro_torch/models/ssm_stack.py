@@ -14,12 +14,16 @@ Each segment's parameters and state are stacked along a leading
 the place of its ``lax.scan``.  The recurrent state is returned as new
 tensors, as the reference does; the hybrid's shared-attention KV cache is
 written in place, as the dense family's.  ``impl`` selects the scan and the
-shared attention (``"kernel"``: the port's kernels through their wrappers;
-``"dense"``: the reference's plain paths).
+shared attention: ``"kernel"``, the port's kernels through their wrappers;
+any other choice of :func:`repro_torch.models.layers.attention` (``"dense"``,
+``"auto"``, ``"flash"``, ...), the reference's plain scan dispatch with that
+attention.  ``remat`` checkpoints each unit, as the reference's
+``jax.checkpoint`` of its scan body.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
@@ -108,18 +112,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
 # segment runners
 # ----------------------------------------------------------------------------
 
-def _unit(tree, u: int):
-    return {k: v[u] for k, v in tree.items()}
+def _units(tree, n: int):
+    """The ``n`` units of a stacked dict, as views (one ``unbind`` per
+    leaf, whose backward stacks the units' grads once)."""
+    flat = {k: torch.unbind(v) for k, v in tree.items()}
+    return [{k: v[u] for k, v in flat.items()} for u in range(n)]
 
 
-def _run_rwkv_segment(cfg, segp, x, seg_state, *, mode="auto", impl="kernel"):
+def _scan_impl(impl: str) -> str:
+    """The scan of a stack run with attention ``impl``: the kernel for
+    ``"kernel"``, the reference's plain dispatch for every other choice."""
+    return "kernel" if impl == "kernel" else "dense"
+
+
+def _maybe_remat(fn, x, remat):
+    return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+
+
+def _run_rwkv_segment(cfg, segp, x, seg_state, *, mode="auto", impl="kernel",
+                      remat=False, chunk=16):
     n = seg_state["wkv"].shape[0]
+    scan = _scan_impl(impl)
     wkv, last_tm, last_cm = [], [], []
-    for u in range(n):
-        st = _unit(seg_state, u)
-        x, s, lasts = R6.block(_unit(segp, u), cfg, x, st["wkv"],
-                               (st["last_tm"].to(x.dtype), st["last_cm"].to(x.dtype)),
-                               mode=mode, impl=impl)
+    for lp, st in zip(_units(segp, n), _units(seg_state, n)):
+        def body(x, lp=lp, st=st):
+            return R6.block(lp, cfg, x, st["wkv"],
+                            (st["last_tm"].to(x.dtype), st["last_cm"].to(x.dtype)),
+                            mode=mode, impl=scan, chunk=chunk)
+
+        x, s, lasts = _maybe_remat(body, x, remat)
         wkv.append(s)
         last_tm.append(lasts[0].float())
         last_cm.append(lasts[1].float())
@@ -129,29 +150,41 @@ def _run_rwkv_segment(cfg, segp, x, seg_state, *, mode="auto", impl="kernel"):
 
 def _run_mamba_segment(cfg, params, segp, x, seg_state, shared_cache, positions,
                        *, mode="auto", impl="kernel", cache_pos=None,
-                       prefill_mode=False, write_mask=None):
+                       prefill_mode=False, write_mask=None, remat=False, chunk=16):
     """Segment of ``n`` mamba blocks; the shared attn block after every
     ``hybrid_attn_period`` blocks.  ``shared_cache``: (k, v) views of this
     segment's applications, [napp_seg, B, T, KV, hd] (written in place, only
-    the rows of ``write_mask`` when given), or None (no cache)."""
+    the rows of ``write_mask`` when given), or None (no cache).  ``remat``
+    checkpoints each (period blocks, shared block) unit, as the reference's
+    ``jax.checkpoint`` of its super-unit."""
     period = cfg.hybrid_attn_period
     n = seg_state["ssm"].shape[0]
+    scan = _scan_impl(impl)
+    lps, sts = _units(segp, n), _units(seg_state, n)
     ssm, conv = [], []
     for a in range(n // period):
-        for u in range(a * period, (a + 1) * period):
-            st = _unit(seg_state, u)
-            o, s, c = M2.block(_unit(segp, u), cfg, x, st["ssm"],
-                               st["conv"].to(x.dtype), mode=mode, impl=impl)
-            x = x + o
-            ssm.append(s)
-            conv.append(c.float())
-        # weight-shared attention + ffn block
+        us = range(a * period, (a + 1) * period)
         kv = None if shared_cache is None else (shared_cache[0][a], shared_cache[1][a])
-        out, _ = L.attention(params["shared_attn"], cfg, x, positions, kv_cache=kv,
-                             cache_pos=cache_pos, impl=impl, prefill_mode=prefill_mode,
-                             write_mask=write_mask)
-        x = x + out
-        x = x + L.ffn(params["shared_ffn"], cfg, x)
+
+        def body(x, us=us, kv=kv):
+            ss, cs = [], []
+            for u in us:
+                o, s, c = M2.block(lps[u], cfg, x, sts[u]["ssm"],
+                                   sts[u]["conv"].to(x.dtype), mode=mode,
+                                   impl=scan, chunk=chunk)
+                x = x + o
+                ss.append(s)
+                cs.append(c.float())
+            # weight-shared attention + ffn block
+            out, _ = L.attention(params["shared_attn"], cfg, x, positions,
+                                 kv_cache=kv, cache_pos=cache_pos, impl=impl,
+                                 prefill_mode=prefill_mode, write_mask=write_mask)
+            x = x + out
+            return x + L.ffn(params["shared_ffn"], cfg, x), ss, cs
+
+        x, ss, cs = _maybe_remat(body, x, remat)
+        ssm += ss
+        conv += cs
     return x, {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
 
 
@@ -161,7 +194,7 @@ def _run_mamba_segment(cfg, params, segp, x, seg_state, shared_cache, positions,
 
 def _stack_forward(cfg, params, x, cache, *, mode, exit_point=None,
                    collect_exits=True, impl="kernel", cache_pos=None,
-                   prefill_mode=False, write_mask=None):
+                   prefill_mode=False, write_mask=None, remat=False, chunk=16):
     """Run segments [0, exit_point] (all when None).  Segments past the exit
     are not run: their state stays as it was (stale), as in the reference.
     Returns (outs, new_cache); ``outs`` is a list of (segment, normed
@@ -180,7 +213,8 @@ def _stack_forward(cfg, params, x, cache, *, mode, exit_point=None,
         segp = params["segments"][si]
         if cfg.family == "ssm":
             x, nst = _run_rwkv_segment(cfg, segp, x, cache["segments"][si],
-                                       mode=mode, impl=impl)
+                                       mode=mode, impl=impl, remat=remat,
+                                       chunk=chunk)
         else:
             napp = segs[si] // cfg.hybrid_attn_period
             shared = None
@@ -190,7 +224,8 @@ def _stack_forward(cfg, params, x, cache, *, mode, exit_point=None,
             x, nst = _run_mamba_segment(cfg, params, segp, x, cache["segments"][si],
                                         shared, positions, mode=mode, impl=impl,
                                         cache_pos=cache_pos, prefill_mode=prefill_mode,
-                                        write_mask=write_mask)
+                                        write_mask=write_mask, remat=remat,
+                                        chunk=chunk)
             app_off += napp
         new_segments[si] = nst
         is_last = si == n_seg - 1
@@ -204,16 +239,22 @@ def _stack_forward(cfg, params, x, cache, *, mode, exit_point=None,
 
 
 def forward(cfg: ModelConfig, params, tokens, *, exit_point=None,
-            collect_exits=True, impl="kernel"):
-    """Eval forward.  Returns a list of (exit_idx, hidden_normed)."""
+            collect_exits=True, impl="auto", remat=False, scan_chunk=16):
+    """Training/eval forward from a zero state.  Returns (list of (exit_idx,
+    hidden_normed), aux_loss = 0.0).  ``impl`` is the hybrid's shared
+    attention; the scan is the kernel for ``"kernel"`` and otherwise the
+    reference's plain dispatch (``mode="auto"``: chunks of ``scan_chunk``
+    where the sequence divides into them, else sequential).  The shared
+    attention attends within the sequence, so no KV cache is kept."""
     x = L.embed(params["embed"], tokens)
-    cache = init_cache(cfg, tokens.shape[0], max_seq=tokens.shape[1],
-                       dtype=x.dtype, device=x.device)
-    outs, _ = _stack_forward(cfg, params, x, cache, mode="auto",
+    state = init_cache(cfg, tokens.shape[0], max_seq=tokens.shape[1],
+                       dtype=x.dtype, device=x.device)["segments"]
+    outs, _ = _stack_forward(cfg, params, x, {"segments": state}, mode="auto",
                              exit_point=exit_point, collect_exits=collect_exits,
-                             impl=impl, prefill_mode=True,
+                             impl=impl, prefill_mode=True, remat=remat,
+                             chunk=scan_chunk,
                              cache_pos=0 if cfg.family == "hybrid" else None)
-    return outs
+    return outs, 0.0
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, impl="kernel"):

@@ -5,7 +5,10 @@ Layers are grouped into *segments* separated by early-exit heads (the
 paper's right-sizing knob); each segment's parameters are stacked along a
 leading ``[n_units]`` axis as in the reference, and a Python loop over the
 units takes the place of its ``lax.scan``.  Exit heads are tied to the
-embedding (RMSNorm + shared vocab projection).
+embedding (RMSNorm + shared vocab projection).  With ``remat`` each unit
+runs under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+of its scan body: the backward recomputes a unit's activations from its
+input.
 
 The KV cache keeps the reference's per-segment layout, a tuple of dicts of
 ``[n_units, B, T, KV, hd]`` tensors, and is written in place.
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
@@ -89,35 +93,44 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # blocks
 # ----------------------------------------------------------------------------
 
-def _unit(tree, u: int):
-    """Unit ``u`` of a stacked parameter/cache dict (views, no copies)."""
-    return {k: (_unit(v, u) if isinstance(v, dict) else v[u])
+def _units(tree, n: int):
+    """The ``n`` units of a stacked parameter dict, as views (one
+    ``unbind`` per leaf, whose backward stacks the units' grads once)."""
+    flat = {k: (_units(v, n) if isinstance(v, dict) else torch.unbind(v))
             for k, v in tree.items()}
+    return [{k: v[u] for k, v in flat.items()} for u in range(n)]
 
 
 def _run_segment(cfg, seg_params, x, positions, *, impl="kernel",
                  seg_cache=None, cache_pos=None, lengths=None,
-                 prefill_mode=False, write_mask=None):
+                 prefill_mode=False, write_mask=None, remat=False):
     """Run a segment's stacked units in order.  Returns (x, seg_cache); the
-    cache is written in place (only the rows of ``write_mask`` when given)."""
+    cache is written in place (only the rows of ``write_mask`` when given).
+    ``remat`` (no cache) checkpoints each unit."""
     n = seg_params["attn"]["wq"].shape[0]
-    for u in range(n):
-        lp = _unit(seg_params, u)
+    for u, lp in enumerate(_units(seg_params, n)):
         kv = None
         if seg_cache is not None:
             kv = (seg_cache["attn_k"][u], seg_cache["attn_v"][u])
-        out, _ = L.attention(lp["attn"], cfg, x, positions, kv_cache=kv,
-                             cache_pos=cache_pos, lengths=lengths, impl=impl,
-                             prefill_mode=prefill_mode, write_mask=write_mask)
-        x = x + out
-        x = x + L.ffn(lp["ffn"], cfg, x)
+
+        def unit(x, lp=lp, kv=kv):
+            out, _ = L.attention(lp["attn"], cfg, x, positions, kv_cache=kv,
+                                 cache_pos=cache_pos, lengths=lengths, impl=impl,
+                                 prefill_mode=prefill_mode, write_mask=write_mask)
+            x = x + out
+            return x + L.ffn(lp["ffn"], cfg, x)
+
+        x = checkpoint(unit, x, use_reentrant=False) if remat else unit(x)
     return x, seg_cache
 
 
 def forward(cfg: ModelConfig, params, tokens, *,
-            exit_point: Optional[int] = None, impl="kernel",
+            exit_point: Optional[int] = None, impl="auto", remat=False,
             collect_exits=True):
-    """Eval forward.  Returns a list of (exit_idx, hidden_normed)."""
+    """Training/eval forward.  Returns (list of (exit_idx, hidden_normed),
+    aux_loss); the dense family has no auxiliary loss (0.0).  Hidden states
+    are returned (not logits) so callers fuse the vocab projection with
+    their loss or confidence computation."""
     B = tokens.shape[0]
     x = L.embed(params["embed"], tokens)
     S = x.shape[1]
@@ -126,7 +139,8 @@ def forward(cfg: ModelConfig, params, tokens, *,
     n_seg = len(segs) if exit_point is None else exit_point + 1
     outs = []
     for si in range(n_seg):
-        x, _ = _run_segment(cfg, params["segments"][si], x, positions, impl=impl)
+        x, _ = _run_segment(cfg, params["segments"][si], x, positions, impl=impl,
+                            remat=remat)
         is_last = si == n_seg - 1
         if not is_last and cfg.num_exits and collect_exits:
             outs.append((si, L.rms_norm(x, params["exit_norms"][si], cfg.norm_eps)))
@@ -134,7 +148,7 @@ def forward(cfg: ModelConfig, params, tokens, *,
             norm = params["final_norm"] if exit_point in (None, len(segs) - 1) \
                 else params["exit_norms"][si]
             outs.append((si, L.rms_norm(x, norm, cfg.norm_eps)))
-    return outs
+    return outs, 0.0
 
 
 # ----------------------------------------------------------------------------

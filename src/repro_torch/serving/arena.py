@@ -41,6 +41,8 @@ from typing import Dict, List
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.tree import leaves as tree_leaves
+from repro_torch.tree import tree_map
 
 __all__ = ["DecodeArena", "cache_sig", "pow2", "tree_leaves", "tree_map"]
 
@@ -57,25 +59,6 @@ def cache_sig(cache) -> tuple:
     """Hashable shape/dtype signature of a cache tree's leaves."""
     return tuple((tuple(leaf.shape), str(leaf.dtype))
                  for leaf in tree_leaves(cache))
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the tensors of congruent cache trees (dicts, tuples and
-    lists of tensors), keeping the structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree) -> List:
-    """The leaves of a cache tree, in a fixed order (dict insertion order)."""
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
 
 
 class DecodeArena:
