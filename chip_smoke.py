@@ -112,7 +112,30 @@ order; any failure exits non-zero:
    peak memory and the step's FLOPs, and, after phase 11's profiles, the
    device idle share of one profiled step.  Training reaches none of the
    port's kernels: the reference's training path reaches no
-   ``pl.pallas_call``, and the kernel wrappers refuse autograd.
+   ``pl.pallas_call``, and the kernel wrappers refuse autograd;
+16. the remaining families at full width, through the same kernels at
+   shapes no earlier phase serves (phase 3 checks and times each kernel
+   there first: hd 128 at G 4 and G 6, non-causal flash for an encoder and
+   a cross-attention prefill of S 12 over T 1000, decode over a fixed
+   1000-key memory, the exit head at D 4096 V 32000 and D 5120 V 202112):
+   llava-next-mistral-7b (32 layers, a [2, 2880, 1024] image prefix through
+   ``mm_proj`` in front of 32 text tokens, 16 decode steps at each exit
+   with the exit heads' confidences, the same on the int8 KV cache, and
+   ``ServingEngine.serve`` of its text backbone), seamless-m4t-large-v2 (24
+   encoder layers over [4, 1000, 1024] frames, 24 decoder layers with
+   cross-attention, a 12-token decoder prefill and 16 steps at each exit)
+   and llama4-scout-17b-a16e (d 5120, 48 padded heads over 8, 16 experts;
+   depth cut to 8 layers, ~35 GB of bf16 weights, as its 48 layers hold
+   ~201 GB; a 1000-token prefill of 4 and 16 steps at each exit), each in
+   bf16 with every launch counted against the model's structure; then each
+   in float32 (llava at B1, scout at 4 layers), the kernel path against the
+   plain path decoding the same tokens with every kernel launch held on its
+   own inputs: last hidden states within HIDDEN_TOL, tokens equal unless
+   the plain margin is below MARGIN_TOL, scout's router flips counted (with
+   any, the paths part by design and scout is held launch by launch),
+   padded heads exactly 0, the int8 decode within rel 0.05 of the
+   unquantized cache's and its bytes under 0.6 of the bf16 cache's, and
+   the gather dispatch against the einsum dispatch.
 
 The line before the last is the JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
@@ -293,16 +316,168 @@ def distinct_bytes(t):
     return n * t.element_size()
 
 
-# ---------------------------------------------------------------- phase 3
-def kernel_checks(torch, timer):
+def attn_share(out, plain32, dt):
+    """max |kernel - plain| and the largest share of the allowed error
+    (ATTN_ATOL + ATTN_RTOL |plain|) any element takes; ``plain32`` is the
+    plain version computed in float32."""
+    diff = (out.float() - plain32).abs()
+    allowed = ATTN_ATOL + ATTN_RTOL[str(dt)] * plain32.abs()
+    return diff.max().item(), (diff / allowed).max().item()
+
+
+def tol_text(dt):
+    return f"allowed {ATTN_ATOL} + {ATTN_RTOL[str(dt)]:.4g} |plain f32|"
+
+
+def flash_check(torch, timer, draw, dt, B, S, Tk, h, kv, d, causal=True, timed=False):
+    """Flash attention on inputs from ``draw`` (q, then k, then v) against
+    its plain version in float32; with ``timed`` (bf16 only) its times
+    beside the plain version, SDPA and its bound, else None."""
     import torch.nn.functional as F
 
     import repro_torch.config as C
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.exit_head import ops as eh_ops
-    from repro_torch.kernels.exit_head import ref as eh_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    q, k, v = draw(B, S, h, d, dtype=dt), draw(B, Tk, kv, d, dtype=dt), \
+        draw(B, Tk, kv, d, dtype=dt)
+    out = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    plain = fa_ref.attention(qt.float(), kt.float(), vt.float(),
+                             causal=causal).transpose(1, 2)
+    e, share = attn_share(out, plain, dt)
+    shape = f"B{B} S{S}" + (f" T{Tk}" if Tk != S else "") + f" H{h} KV{kv} hd{d}" \
+        + ("" if causal else " non-causal")
+    log(f"check flash_attention {dt} {shape}: max_abs_err {e:.3g}, worst err/allowed "
+        f"{share:.3g} ({tol_text(dt)})")
+    require(torch.isfinite(out).all().item(), "flash_attention: non-finite output")
+    require(share <= 1.0, f"flash_attention {dt} {shape} disagrees: {share} of the "
+            "allowed error")
+    if not (timed and dt == torch.bfloat16):
+        return None
+    qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
+    t = dict(**timer.kernel(lambda: fa_ops.flash_attention(q, k, v, causal=causal)),
+             plain_ms=timer.ms(lambda: fa_ref.attention(qt, kt, vt, causal=causal)),
+             library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                 qc, kc, vc, is_causal=causal, enable_gqa=True)))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    # QK^T and PV over every (query, key) pair: the causal half at S == T
+    pairs = S * (S + 1) // 2 if causal else S * Tk
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 4 * B * h * d * pairs, dt, C)
+    t.update(max_abs_err=e, err_share=share, shape=shape, dtype=str(dt))
+    log(f"time flash_attention {t}")
+    return t
+
+
+def decode_check(torch, timer, draw, dt, B, Tc, h, kv, d, lens, n_units=2, timed=False):
+    """Decode attention over a view of a stacked [n_units, B, Tc, KV, hd]
+    cache (drawn k, then v, then q) against its plain version in float32;
+    a zero-length row must be exactly 0.  With ``timed`` (bf16 only) its
+    times beside the plain version, SDPA and its bound, else None."""
+    import torch.nn.functional as F
+
+    import repro_torch.config as C
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    ck, cv = draw(n_units, B, Tc, kv, d, dtype=dt), draw(n_units, B, Tc, kv, d, dtype=dt)
+    kc_, vc_ = ck[n_units // 2], cv[n_units // 2]
+    q = draw(B, 1, h, d, dtype=dt)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = fa_ops.decode_attention(q, kc_, vc_, lengths)
+    torch.cuda.synchronize()
+    qt, kt, vt = q.transpose(1, 2), kc_.transpose(1, 2), vc_.transpose(1, 2)
+    plain = fa_ref.decode_attention(qt.float(), kt.float(), vt.float(),
+                                    lengths).transpose(1, 2)
+    e, share = attn_share(out, plain, dt)
+    log(f"check decode_attention {dt} B{B} T{Tc} H{h} KV{kv} hd{d} lengths {lens}: "
+        f"max_abs_err {e:.3g}, worst err/allowed {share:.3g} ({tol_text(dt)})")
+    require(torch.isfinite(out).all().item(), "decode_attention: non-finite output")
+    require(share <= 1.0, f"decode_attention {dt} H{h}/{kv} hd{d} lengths {lens} "
+            f"disagrees: {share} of the allowed error")
+    if 0 in lens:
+        z = out[lens.index(0)].abs().max().item()
+        require(z == 0.0, f"decode_attention: zero-length row is not zero ({z})")
+    if not (timed and dt == torch.bfloat16):
+        return None
+    qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
+    mask = (torch.arange(Tc, device="cuda")[None, :] < lengths[:, None])[:, None, None]
+    t = dict(**timer.kernel(lambda: fa_ops.decode_attention(q, kc_, vc_, lengths)),
+             plain_ms=timer.ms(lambda: fa_ref.decode_attention(qt, kt, vt, lengths)),
+             library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                 qc, kc, vc, attn_mask=mask, enable_gqa=True)))
+    n_keys = sum(min(n, Tc) for n in lens)
+    nbytes = (2 * q.numel() + 2 * n_keys * kv * d) * q.element_size() + 4 * B
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 4 * h * d * n_keys, dt, C)
+    t.update(max_abs_err=e, err_share=share, dtype=str(dt),
+             shape=f"B{B} T{Tc} H{h} KV{kv} hd{d} lengths {lens[0]}")
+    log(f"time decode_attention {t}")
+    return t
+
+
+def exit_head_check(torch, timer, draw, dt, rows, d, vv, timed=False):
+    """The exit head over h [1, rows, d] (drawn first) against an embedding
+    [vv, d] (drawn second) with exact ties across chunks and warps (row 0's
+    maximum is a 3-way tie, which the first index must win), against its
+    plain version on the same values widened to float32: tokens equal
+    unless the plain top-2 margin is below MARGIN_TOL, conf within
+    CONF_TOL, entropy within ENT_RTOL.  With ``timed`` (bf16 only) its
+    times beside the plain version, the library composite and its bound."""
+    import repro_torch.config as C
+    from repro_torch.kernels.exit_head import ops as eh_ops
+    from repro_torch.kernels.exit_head import ref as eh_ref
+    h = draw(1, rows, d, dtype=dt)
+    emb = draw(vv, d, dtype=dt, scale=1.0 / math.sqrt(d))
+    emb[6] = emb[5]                      # same chunk, neighbouring warps
+    emb[vv - 100] = emb[5]               # a chunk near the end
+    h[0, 0] = emb[5].float().mul(40.0).to(dt)   # row 0's maximum: a 3-way tie
+    got = eh_ops.exit_confidence(h, emb)
+    torch.cuda.synchronize()
+    hf, ef = h.float(), emb.float()
+    plain = eh_ref.exit_confidence(hf, ef)
+    require(got["token"][0, 0].item() == 5,
+            f"exit head V{vv}: tie went to {got['token'][0, 0].item()}, not 5")
+    diff = (got["token"] != plain["token"]).nonzero().tolist()
+    if diff:
+        top2 = torch.einsum("bsd,vd->bsv", hf, ef).topk(2, dim=-1).values
+        m = top2[..., 0] - top2[..., 1]
+        for b, s in diff:
+            log(f"exit head token flip row {s}: kernel {got['token'][b, s].item()} "
+                f"plain {plain['token'][b, s].item()} margin {m[b, s].item():.3g}")
+            require(m[b, s].item() < MARGIN_TOL, "exit head: token differs "
+                    "where the plain margin is above tolerance")
+    ec = (got["conf"] - plain["conf"]).abs().max().item()
+    ee = ((got["entropy"] - plain["entropy"]).abs()
+          / plain["entropy"].abs().clamp_min(1.0)).max().item()
+    log(f"check exit_confidence {dt} rows{rows} D{d} V{vv}: tokens equal "
+        f"{not diff}, conf err {ec:.3g} (tol {CONF_TOL}), entropy rel err "
+        f"{ee:.3g} (tol {ENT_RTOL})")
+    require(ec <= CONF_TOL and ee <= ENT_RTOL, f"exit head {dt} D{d} V{vv} disagrees")
+    if not (timed and dt == torch.bfloat16):
+        return None
+    h2 = h.reshape(rows, d)
+
+    def library():
+        logits = (h2 @ emb.T).float()
+        lse = torch.logsumexp(logits, -1)
+        p = torch.softmax(logits, -1)
+        return logits.argmax(-1), torch.exp(logits.max(-1).values - lse), \
+            lse - (p * logits).sum(-1)
+
+    t = dict(**timer.kernel(lambda: eh_ops.exit_confidence(h, emb)),
+             plain_ms=timer.ms(lambda: eh_ref.exit_confidence(h, emb)),
+             library_ms=timer.ms(library))
+    nbytes = (h.numel() + emb.numel()) * h.element_size() + 12 * rows
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * rows * vv * d, dt, C)
+    t.update(max_abs_err=max(ec, (got["entropy"] - plain["entropy"]).abs().max().item()),
+             shape=f"rows{rows} D{d} V{vv}", dtype=str(dt))
+    log(f"time exit_confidence {t}")
+    return t
+
+
+# ---------------------------------------------------------------- phase 3
+def kernel_checks(torch, timer):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     cfg = get_config(LLAMA)
     H, KV, hd, D, V = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_model, cfg.padded_vocab
@@ -311,20 +486,6 @@ def kernel_checks(torch, timer):
     def randn(*shape, dtype=torch.float32, scale=1.0):
         x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
         return (x * scale).to(dtype)
-
-    def err(a, b):
-        return (a.float() - b.float()).abs().max().item()
-
-    def attn_err(out, plain32, dt):
-        """max |kernel - plain| over the output, and the largest share of
-        the allowed error (ATTN_ATOL + ATTN_RTOL * |plain|) any element
-        takes; ``plain32`` is the plain version in float32."""
-        diff = (out.float() - plain32).abs()
-        allowed = ATTN_ATOL + ATTN_RTOL[str(dt)] * plain32.abs()
-        return diff.max().item(), (diff / allowed).max().item()
-
-    def tol_text(dt):
-        return f"allowed {ATTN_ATOL} + {ATTN_RTOL[str(dt)]:.4g} |plain f32|"
 
     record = {}
     zc = get_config(ZAMBA)
@@ -335,73 +496,15 @@ def kernel_checks(torch, timer):
     timed = {}          # (model, kernel, shape kind) -> times
 
     def flash_case(dt, B, S, Tk, h, kv, d, draw):
-        q, k, v = draw(B, S, h, d, dtype=dt), draw(B, Tk, kv, d, dtype=dt), \
-            draw(B, Tk, kv, d, dtype=dt)
-        out = fa_ops.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        plain = fa_ref.attention(qt.float(), kt.float(), vt.float(),
-                                 causal=True).transpose(1, 2)
-        e, share = attn_err(out, plain, dt)
-        log(f"check flash_attention {dt} B{B} S{S} T{Tk} H{h} KV{kv} hd{d}: "
-            f"max_abs_err {e:.3g}, worst err/allowed {share:.3g} ({tol_text(dt)})")
-        require(torch.isfinite(out).all().item(), "flash_attention: non-finite output")
-        require(share <= 1.0, f"flash_attention {dt} S{S} hd{d} disagrees: "
-                f"{share} of the allowed error")
-        if dt == torch.bfloat16 and (h, kv, d) in served and S == Tk:
-            qc, kc, vc = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            t = dict(
-                **timer.kernel(lambda: fa_ops.flash_attention(q, k, v, causal=True)),
-                plain_ms=timer.ms(lambda: fa_ref.attention(qt, kt, vt, causal=True)),
-                library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                    qc, kc, vc, is_causal=True, enable_gqa=True)))
-            elt = q.element_size()
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt
-            flops = 4 * B * h * d * S * (S + 1) // 2     # QK^T and PV, causal half
-            t["bound_ms"], t["bound_by"] = bound(nbytes, flops, dt, C)
-            t.update(max_abs_err=e, err_share=share,
-                     shape=f"B{B} S{S} H{h} KV{kv} hd{d}", dtype=str(dt))
-            log(f"time flash_attention {t}")
+        t = flash_check(torch, timer, draw, dt, B, S, Tk, h, kv, d,
+                        timed=(h, kv, d) in served and S == Tk)
+        if t is not None:
             timed[served[h, kv, d], "flash_attention", S == LONG_PROMPT] = t
 
     def decode_case(dt, B, Tc, h, kv, d, lens, n_units, draw):
-        ck, cv = draw(n_units, B, Tc, kv, d, dtype=dt), draw(n_units, B, Tc, kv, d, dtype=dt)
-        kc_, vc_ = ck[n_units // 2], cv[n_units // 2]
-        q = draw(B, 1, h, d, dtype=dt)
-        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        out = fa_ops.decode_attention(q, kc_, vc_, lengths)
-        torch.cuda.synchronize()
-        qt, kt, vt = q.transpose(1, 2), kc_.transpose(1, 2), vc_.transpose(1, 2)
-        plain = fa_ref.decode_attention(qt.float(), kt.float(), vt.float(),
-                                        lengths).transpose(1, 2)
-        e, share = attn_err(out, plain, dt)
-        log(f"check decode_attention {dt} B{B} T{Tc} H{h} KV{kv} hd{d} "
-            f"lengths {lens}: max_abs_err {e:.3g}, worst err/allowed {share:.3g} "
-            f"({tol_text(dt)})")
-        require(torch.isfinite(out).all().item(), "decode_attention: non-finite output")
-        require(share <= 1.0, f"decode_attention {dt} hd{d} lengths {lens} disagrees: "
-                f"{share} of the allowed error")
-        if 0 in lens:
-            z = out[lens.index(0)].abs().max().item()
-            require(z == 0.0, f"decode_attention: zero-length row is not zero ({z})")
-        if dt == torch.bfloat16 and (h, kv, d) in served and lens == [Tc - 1] * BATCH:
-            qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
-            valid = (torch.arange(Tc, device="cuda")[None, :] < lengths[:, None])
-            mask = valid[:, None, None, :]
-            t = dict(
-                **timer.kernel(lambda: fa_ops.decode_attention(q, kc_, vc_, lengths)),
-                plain_ms=timer.ms(lambda: fa_ref.decode_attention(qt, kt, vt, lengths)),
-                library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                    qc, kc, vc, attn_mask=mask, enable_gqa=True)))
-            elt = q.element_size()
-            n_keys = sum(lens)
-            nbytes = (2 * q.numel() + 2 * n_keys * kv * d) * elt + 4 * B
-            flops = 4 * h * d * n_keys
-            t["bound_ms"], t["bound_by"] = bound(nbytes, flops, dt, C)
-            t.update(max_abs_err=e, err_share=share,
-                     shape=f"B{B} T{Tc} H{h} KV{kv} hd{d} lengths {lens[0]}",
-                     dtype=str(dt))
-            log(f"time decode_attention {t}")
+        t = decode_check(torch, timer, draw, dt, B, Tc, h, kv, d, lens, n_units,
+                         timed=(h, kv, d) in served and lens == [Tc - 1] * BATCH)
+        if t is not None:
             timed[served[h, kv, d], "decode_attention", Tc == T] = t
 
     # -- prefill flash attention: S 12 and 1000 (both ragged against the
@@ -473,58 +576,10 @@ def kernel_checks(torch, timer):
 
     # -- exit head: the main path's rows against the full tied embedding,
     #    with exact ties across chunks and warps, and a ragged small vocab
-    def margins(logits):
-        top2 = logits.topk(2, dim=-1).values
-        return (top2[..., 0] - top2[..., 1])
-
     for dt in (torch.bfloat16, torch.float32):
         for rows, d, vv in ((BATCH, D, V), (7, 64, 1000)):
-            h = randn(1, rows, d, dtype=dt)
-            emb = randn(vv, d, dtype=dt, scale=1.0 / math.sqrt(d))
-            emb[6] = emb[5]                      # same chunk, neighbouring warps
-            emb[vv - 100] = emb[5]               # a chunk near the end
-            h[0, 0] = emb[5].float().mul(40.0).to(dt)   # row 0's maximum: a 3-way tie
-            got = eh_ops.exit_confidence(h, emb)
-            torch.cuda.synchronize()
-            hf, ef = h.float(), emb.float()
-            plain = eh_ref.exit_confidence(hf, ef)
-            require(got["token"][0, 0].item() == 5,
-                    f"exit head: tie went to {got['token'][0, 0].item()}, not 5")
-            diff = (got["token"] != plain["token"]).nonzero().tolist()
-            if diff:
-                m = margins(torch.einsum("bsd,vd->bsv", hf, ef))
-                for b, s in diff:
-                    log(f"exit head token flip row {s}: kernel {got['token'][b, s].item()} "
-                        f"plain {plain['token'][b, s].item()} margin {m[b, s].item():.3g}")
-                    require(m[b, s].item() < MARGIN_TOL, "exit head: token differs "
-                            "where the plain margin is above tolerance")
-            ec = err(got["conf"], plain["conf"])
-            ee = ((got["entropy"] - plain["entropy"]).abs()
-                  / plain["entropy"].abs().clamp_min(1.0)).max().item()
-            log(f"check exit_confidence {dt} rows{rows} D{d} V{vv}: tokens equal "
-                f"{not diff}, conf err {ec:.3g} (tol {CONF_TOL}), entropy rel err "
-                f"{ee:.3g} (tol {ENT_RTOL})")
-            require(ec <= CONF_TOL and ee <= ENT_RTOL, f"exit head {dt} V{vv} disagrees")
-            if dt == torch.bfloat16 and vv == V:
-                h2 = h.reshape(rows, d)
-
-                def library():
-                    logits = (h2 @ emb.T).float()
-                    lse = torch.logsumexp(logits, -1)
-                    p = torch.softmax(logits, -1)
-                    return logits.argmax(-1), torch.exp(logits.max(-1).values - lse), \
-                        lse - (p * logits).sum(-1)
-
-                t = dict(**timer.kernel(lambda: eh_ops.exit_confidence(h, emb)),
-                         plain_ms=timer.ms(lambda: eh_ref.exit_confidence(h, emb)),
-                         library_ms=timer.ms(library))
-                nbytes = (h.numel() + emb.numel()) * h.element_size() + 12 * rows
-                flops = 2 * rows * vv * d
-                t["bound_ms"], t["bound_by"] = bound(nbytes, flops, dt, C)
-                t.update(max_abs_err=max(ec, err(got["entropy"], plain["entropy"])),
-                         shape=f"rows{rows} D{d} V{vv}",
-                         dtype=str(dt))
-                log(f"time exit_confidence {t}")
+            t = exit_head_check(torch, timer, randn, dt, rows, d, vv, timed=vv == V)
+            if t is not None:
                 record["exit_confidence"] = t
     record["ssm_scan"] = scan_checks(torch, timer, randn)
     return record
@@ -679,7 +734,7 @@ def expected_launches(model, prompts, steps):
     the exit head picks one token after each prefill and each step."""
     from repro_torch.kernels.ssm_scan import ops as ss_ops
     cfg, segs = model.cfg, model.segment_lengths()
-    attn_every = {"dense": 1, "hybrid": cfg.hybrid_attn_period}.get(cfg.family)
+    attn_every = {"dense": 1, "vlm": 1, "hybrid": cfg.hybrid_attn_period}.get(cfg.family)
     scans = cfg.family in ("ssm", "hybrid")
 
     def attn(n_layers):
@@ -2052,6 +2107,576 @@ def lm_train_profile(torch, walls):
 
 
 # ---------------------------------------------------------------- main
+# ---------------------------------------------------------------- phase 16
+# The remaining model families at full width: llava-next-mistral-7b (the VLM:
+# 2880 precomputed patch embeddings through mm_proj in front of the text, 32
+# layers at head dim 128, 32/8 heads), seamless-m4t-large-v2 (the enc-dec: 24
+# non-causal encoder layers over 1000 frames, 24 decoder layers with
+# cross-attention over that memory) and llama4-scout-17b-a16e (a top-1 MoE of
+# 16 experts every layer, 40 heads padded to 48 over 8 kv heads: G = 6),
+# with the int8 KV cache on llava.  Random weights from torch.Generator seed 0.
+LLAVA, SEAMLESS, SCOUT = "llava-next-mistral-7b", "seamless-m4t-large-v2", "llama4-scout-17b-a16e"
+FAMILY_STEPS = 16                  # decode steps at each exit
+LLAVA_BATCH, LLAVA_TEXT = 2, 32    # text tokens after the 2880-embedding prefix
+ENC_FRAMES, DEC_PROMPT = 1000, 12
+# scout's depth is cut: its 48 layers hold ~201 GB of bf16 weights, beyond one
+# card's 80 GB (the full depth waits for the torch.distributed substrate);
+# 8 layers are ~35 GB in bf16, 4 layers ~37 GB in f32
+SCOUT_LAYERS = {"bf16": 8, "f32": 4}
+# the int8 cache's holds: decode within rel INT8_REL of the unquantized
+# cache's (the reference's bound, tests/test_perf_features.py), its bytes
+# under INT8_BYTES of the unquantized bf16 cache's
+INT8_REL, INT8_BYTES = 0.05, 0.6
+# the kernels each family's main path launches (seamless picks its tokens
+# from the plain logits: its decode step reports no exit confidences)
+FAMILY_KERNELS = {LLAVA: ("flash_attention", "decode_attention", "exit_confidence"),
+                  SEAMLESS: ("flash_attention", "decode_attention"),
+                  SCOUT: ("flash_attention", "decode_attention", "exit_confidence")}
+
+
+def family_config(arch, precision="bf16"):
+    """The full config of ``arch``; scout's depth cut to SCOUT_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == SCOUT:
+        cfg = dataclasses.replace(cfg, num_layers=SCOUT_LAYERS[precision])
+    return cfg
+
+
+def family_kernel_times(torch):
+    """Phase 3 at the new families' shapes: each kernel against its plain
+    version in bfloat16 and float32, then timed (bf16) beside its plain
+    version, SDPA or the library composite, and its bound.  Flash: llava's
+    prefill (B2 S2912, hd 128, G 4, causal), scout's (B4 S1000, 48 padded
+    heads over 8: G 6), seamless's encoder (S = T = 1000, non-causal) and
+    its cross-attention at prefill (S 12 over T 1000: one ragged q-tile, T
+    not a multiple of the key tile), and non-causal S 77 over T 300 and S
+    300 over T 77 at hd 128.  Decode: llava's cache (T 2929), scout's at G
+    6 (lengths on a split boundary, one past it, past T and zero too), and
+    the cross-attention over the memory (lengths = T = 1000).  Exit head:
+    llava's D 4096 V 32000 and scout's D 5120 V 202112 with exact ties.
+    From a generator of its own (seed 16), so that phase 3's inputs stay
+    those of earlier runs.  Returns ``{kernel: {label: times}}``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    timer = Timer(torch)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    out = {"flash_attention": {}, "decode_attention": {}, "exit_confidence": {}}
+
+    def keep(kernel, label, t):
+        if t is not None:
+            out[kernel][label] = t
+
+    lv, sc, sm = family_config(LLAVA), family_config(SCOUT), family_config(SEAMLESS)
+    lH, lKV, lhd = lv.num_heads, lv.num_kv_heads, lv.hd
+    sH, sKV, shd = sc.padded_heads, sc.num_kv_heads, sc.hd
+    mH, mKV, mhd = sm.num_heads, sm.num_kv_heads, sm.hd
+    S_llava = lv.num_prefix_tokens + LLAVA_TEXT
+    T_llava = S_llava + FAMILY_STEPS + 1
+    T_scout = LONG_PROMPT + FAMILY_STEPS + 1
+    SK = fa_ops.SPLIT_KEYS
+    for dt in (torch.bfloat16, torch.float32):
+        for label, case in (
+                (f"{LLAVA} prefill", (LLAVA_BATCH, S_llava, S_llava, lH, lKV, lhd, True)),
+                (f"{SCOUT} prefill", (BATCH, LONG_PROMPT, LONG_PROMPT, sH, sKV, shd, True)),
+                (f"{SEAMLESS} encoder", (BATCH, ENC_FRAMES, ENC_FRAMES, mH, mKV, mhd, False)),
+                (f"{SEAMLESS} cross prefill",
+                 (BATCH, DEC_PROMPT, ENC_FRAMES, mH, mKV, mhd, False)),
+                (None, (2, 77, 300, 4, 2, 128, False)),
+                (None, (2, 300, 77, 6, 1, 128, False))):
+            keep("flash_attention", label,
+                 flash_check(torch, timer, randn, dt, *case, timed=label is not None))
+        for label, case in (
+                (f"{LLAVA} decode",
+                 (LLAVA_BATCH, T_llava, lH, lKV, lhd, [T_llava - 1] * LLAVA_BATCH)),
+                (f"{SCOUT} decode", (BATCH, T_scout, sH, sKV, shd, [T_scout - 1] * BATCH)),
+                (None, (BATCH, T_scout, sH, sKV, shd, [SK, SK + 1, T_scout + 7, 0])),
+                (f"{SEAMLESS} cross decode",
+                 (BATCH, ENC_FRAMES, mH, mKV, mhd, [ENC_FRAMES] * BATCH))):
+            keep("decode_attention", label,
+                 decode_check(torch, timer, randn, dt, *case, timed=label is not None))
+        for label, (rows, cfg) in ((f"{LLAVA} exit head", (LLAVA_BATCH, lv)),
+                                   (f"{SCOUT} exit head", (BATCH, sc))):
+            keep("exit_confidence", label,
+                 exit_head_check(torch, timer, randn, dt, rows, cfg.d_model,
+                                 cfg.padded_vocab, timed=True))
+    for kernel, times in out.items():
+        for label, t in times.items():
+            log(f"time {kernel} {label}: {t}")
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
+def shadowed_kernels(torch, worst):
+    """Context: every attention and exit-head launch held against its plain
+    version on the same inputs (attention at ATTN_ATOL, float32; the exit
+    head's token equal unless the plain top-2 margin is below MARGIN_TOL,
+    its confidence at CONF_TOL).  ``worst`` gathers the largest share of
+    the allowed error and the launches held, by kind: non-causal flash,
+    G = 6, head dim 128."""
+    from repro_torch.kernels.exit_head import ops as eh_ops
+    from repro_torch.kernels.exit_head import ref as eh_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    flash, dec, head = fa_ops.flash_attention, fa_ops.decode_attention, eh_ops.exit_confidence
+
+    def note(kind, q, k, share, err):
+        G, hd = q.shape[2] // k.shape[2], q.shape[3]
+        for tag, on in ((kind, True), ("G6", G == 6), ("hd128", hd == 128)):
+            if on:
+                n, s, e = worst.get(tag, (0, 0.0, 0.0))
+                worst[tag] = (n + 1, max(s, share), max(e, err))
+
+    def flash_held(q, k, v, *, causal=True):
+        o = flash(q, k, v, causal=causal)
+        plain = fa_ref.attention(q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                                 v.transpose(1, 2).float(), causal=causal).transpose(1, 2)
+        e, share = attn_share(o, plain, q.dtype)
+        note("flash causal" if causal else "flash non-causal", q, k, share, e)
+        return o
+
+    def decode_held(q, k, v, lengths):
+        o = dec(q, k, v, lengths)
+        plain = fa_ref.decode_attention(q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                                        v.transpose(1, 2).float(), lengths).transpose(1, 2)
+        e, share = attn_share(o, plain, q.dtype)
+        note("decode", q, k, share, e)
+        return o
+
+    def head_held(h, emb):
+        got = head(h, emb)
+        plain = eh_ref.exit_confidence(h.float(), emb.float())
+        logits = torch.einsum("bsd,vd->bsv", h.float(), emb.float())
+        top2 = logits.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        bad = (got["token"] != plain["token"]) & (margin >= MARGIN_TOL)
+        require(not bad.any().item(), "exit head: a token differs from the plain head's on "
+                "its inputs where the margin is above tolerance")
+        ec = (got["conf"] - plain["conf"]).abs().max().item()
+        require(ec <= CONF_TOL, f"exit head: conf {ec} from the plain head's on its inputs")
+        n, s, e = worst.get("exit head", (0, 0.0, 0.0))
+        worst["exit head"] = (n + 1, max(s, ec / CONF_TOL), max(e, ec))
+        return got
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(patched(fa_ops, "flash_attention", flash_held))
+    stack.enter_context(patched(fa_ops, "decode_attention", decode_held))
+    stack.enter_context(patched(eh_ops, "exit_confidence", head_held))
+    return stack
+
+
+def recorded_routes(torch, routes):
+    """Context: every MoE call records its router's expert per token and the
+    top-2 router-probability margin, in call order (``routes``)."""
+    from repro_torch.models import moe as MOE
+    inner = MOE.moe_ffn
+
+    def moe_ffn(p, cfg, x, **kw):
+        probs, _ = MOE.route(p, cfg, x)
+        top2 = probs.topk(2, dim=-1)
+        routes.append((top2.indices[..., 0].cpu(),
+                       (top2.values[..., 0] - top2.values[..., 1]).cpu()))
+        return inner(p, cfg, x, **kw)
+    return patched(MOE, "moe_ffn", moe_ffn)
+
+
+def family_inputs(torch, cfg, B, S):
+    """The family's prefill inputs, from generator seed 1 on the card:
+    tokens [B, S] and the VLM's prefix [B, 2880, 1024] or the enc-dec's
+    frames [B, 1000, 1024], in float32 (the model casts them)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    extra = {}
+    if cfg.frontend == "vision":
+        extra["prefix_emb"] = torch.randn((B, cfg.num_prefix_tokens, 1024), generator=gen,
+                                          device="cuda")
+    if cfg.is_encdec:
+        extra["frames"] = torch.randn((B, ENC_FRAMES, 1024), generator=gen, device="cuda")
+    return toks, extra
+
+
+def family_run(torch, model, params, toks, extra, *, impl="kernel", quant=False,
+               feed=None, margins=False):
+    """Prefill, then FAMILY_STEPS greedy decode steps at each exit (every
+    exit restarts from the prefill: a step writes its position before it
+    attends, so a later run overwrites what an earlier one left).  Tokens
+    come from the exit head (the plain argmax of the logits for the
+    enc-dec, whose steps report no exit confidences); ``feed``: the tokens
+    to feed instead, {exit: [B] lists by step} (teacher forcing, so that
+    two paths decode the same sequence).  Returns {"prefill": h, "cache":
+    cache, "calls": (prefills, exit-head picks, segments run by step), exit:
+    (picked tokens by step, top-2 margins by step or None, last hidden)}."""
+    from repro_torch.kernels.exit_head import ops as eh_ops
+    from repro_torch.kernels.exit_head import ref as eh_ref
+    cfg = model.cfg
+    B, S = toks.shape
+    P = cfg.num_prefix_tokens if "prefix_emb" in extra else 0
+    dtype = params["embed"].dtype
+    kw = {"enc_len": ENC_FRAMES} if cfg.is_encdec else {"quant": quant} if quant else {}
+    cache = model.init_cache(B, P + S + FAMILY_STEPS + 1, dtype=dtype, device="cuda", **kw)
+    h0, cache = model.prefill(params, toks, cache, impl=impl, **extra)
+    head = eh_ops.exit_confidence if impl == "kernel" else eh_ref.exit_confidence
+    n_seg = model.num_segments
+    picks, steps = 0, []
+
+    def pick(h):
+        nonlocal picks
+        if cfg.is_encdec:
+            return model.logits(params, h)[:, -1].float().argmax(-1)
+        picks += 1
+        return head(h, params["embed"])["token"][:, -1]
+
+    def margin(h):
+        top2 = model.logits(params, h)[:, -1].float().topk(2, dim=-1).values
+        return (top2[:, 0] - top2[:, 1]).tolist()
+
+    out = {"prefill": h0}
+    for e in list(range(n_seg - 1)) + [None]:
+        tok, got, mar = pick(h0), [], []
+        if margins:
+            mar.append(margin(h0))
+        got.append(tok.tolist())
+        for i in range(FAMILY_STEPS):
+            nxt = tok if feed is None else torch.tensor(feed[e][i], device="cuda")
+            h, cache, confs = model.decode_step(params, cache, nxt[:, None].int(), P + S + i,
+                                                exit_point=e, impl=impl,
+                                                with_exit_confidence=not cfg.is_encdec)
+            steps.append(n_seg if e is None else e + 1)
+            tok = pick(h)
+            got.append(tok.tolist())
+            if margins:
+                mar.append(margin(h))
+        out[e] = (got, mar if margins else None, h)
+    out["cache"], out["calls"] = cache, (1, picks, steps)
+    return out
+
+
+def family_expected(model, calls):
+    """The launches a ``family_run`` must count, from the model's structure:
+    a prefill launches flash once a layer (the enc-dec: once an encoder
+    layer, and twice a decoder layer, self and cross); a decode step runs
+    decode attention once a layer it reaches (the enc-dec twice); the exit
+    head picks each token and scores each intermediate exit a step passes
+    (none for the enc-dec)."""
+    cfg, segs = model.cfg, model.segment_lengths()
+    prefills, picks, steps = calls
+    if cfg.is_encdec:
+        return {"flash_attention": prefills * (cfg.num_encoder_layers + 2 * cfg.num_layers),
+                "decode_attention": sum(2 * sum(segs[:n]) for n in steps),
+                "exit_confidence": 0}
+    from repro_torch.models.transformer import unit_size
+    u = unit_size(cfg)
+    return {"flash_attention": prefills * cfg.num_layers,
+            "decode_attention": sum(u * sum(segs[:n]) for n in steps),
+            "exit_confidence": picks + sum(n - 1 for n in steps)}
+
+
+def counted_run(torch, arch, label, model, params, toks, extra, **kw):
+    """``family_run`` with every launch counter at zero before it; checks
+    the counts against ``family_expected`` and that the family's kernels
+    all ran.  Returns (result, counts)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    require(not any(launch_counts().values()), "a launch counter did not reset")
+    t0 = time.perf_counter()
+    res = family_run(torch, model, params, toks, extra, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    want = family_expected(model, res["calls"])
+    label = f"{arch} {label}"
+    log(f"phase 16 {label}: {wall:.2f} s for the prefill and {len(res['calls'][2])} decode "
+        f"steps; launches {counts}, from the model's structure {want}")
+    for name in FAMILY_KERNELS[arch]:
+        require(counts.get(name, 0) > 0, f"{label}: kernel {name} was never launched")
+    for name, n in want.items():
+        require(counts.get(name, 0) == n, f"{label}: {counts.get(name, 0)} {name} launches, "
+                f"the model's structure gives {n}")
+    for e in [k for k in res if k not in ("prefill", "cache", "calls")]:
+        require(torch.isfinite(res[e][2].float()).all().item(),
+                f"{label}: non-finite hidden state at exit {e}")
+    return res, counts
+
+
+def held_paths(torch, label, kern, plain, routes=None):
+    """Hold the float32 kernel path against the plain path, both decoding
+    the plain path's tokens: last hidden states within HIDDEN_TOL (the
+    prefill's and each exit's last step's) and each picked token equal
+    unless the plain top-2 margin is below MARGIN_TOL (every flip logged).
+    ``routes``: the MoE's router choices on the kernel and the plain path,
+    call by call; with any token routed differently the paths part by
+    design (a flip moves whole tokens and the capacity slots after them),
+    and the end-to-end distances are logged, not held: every launch is
+    then held on its own inputs (``shadowed_kernels``)."""
+    flips_r = 0
+    if routes is not None:
+        rk, rp = routes
+        require(len(rk) == len(rp), f"{label}: {len(rk)} MoE calls on the kernel path, "
+                f"{len(rp)} on the plain path")
+        for call, ((ek, _), (ep, mp)) in enumerate(zip(rk, rp)):
+            diff = (ek != ep).nonzero().tolist()
+            for b, s in diff:
+                log(f"phase 16 {label}: MoE call {call} row {b} token {s}: expert "
+                    f"{ek[b, s].item()} on the kernel path, {ep[b, s].item()} on the plain "
+                    f"path, plain top-2 router margin {mp[b, s].item():.3g}")
+            flips_r += len(diff)
+        log(f"phase 16 {label}: {flips_r} router flips over {len(rk)} MoE calls "
+            f"(smallest plain top-2 router margin "
+            f"{min(m.min().item() for _, m in rp):.3g})")
+    end_to_end = flips_r == 0
+    e0 = (kern["prefill"].float() - plain["prefill"].float()).abs().max().item()
+    worst_h, flips_t = e0, []
+    for e in [k for k in plain if k not in ("prefill", "cache", "calls")]:
+        (tk, _, hk), (tp, mp, hp) = kern[e], plain[e]
+        for step, (a, b, m) in enumerate(zip(tk, tp, mp)):
+            for row, (x, y) in enumerate(zip(a, b)):
+                if x != y:
+                    flips_t.append((e, step, row, m[row]))
+        worst_h = max(worst_h, (hk.float() - hp.float()).abs().max().item())
+    for e, step, row, m in flips_t:
+        log(f"phase 16 {label}: token flip at exit {e} step {step} row {row}, plain "
+            f"top-2 margin {m:.3g}")
+    log(f"phase 16 {label}: kernel vs plain path, f32: prefill last hidden max_abs_err "
+        f"{e0:.3g}, worst last hidden over the exits {worst_h:.3g} (tol {HIDDEN_TOL}), "
+        f"{len(flips_t)} token flips; held end to end: {end_to_end}")
+    if end_to_end:
+        require(worst_h <= HIDDEN_TOL, f"{label}: last hidden states differ by {worst_h}")
+        require(all(m < MARGIN_TOL for *_, m in flips_t),
+                f"{label}: a token differs where the plain path's margin is above tolerance")
+
+
+def padded_heads_zero(torch, model, params):
+    """Scout's padding query heads (8 of 48) come out of attention exactly
+    0, at a prefill through flash and a decode through decode attention:
+    layer 0 with ``wo`` the identity shows attention's output itself."""
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    h, kv, hd = cfg.padded_heads, cfg.num_kv_heads, cfg.hd
+    pad = (torch.arange(h, device="cuda") % (h // kv)) >= cfg.num_heads // kv
+    p = {k: v[0] for k, v in params["segments"][0]["attn"].items()}
+    dt = p["wq"].dtype
+    p["wo"] = torch.eye(h * hd, dtype=dt, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((BATCH, 13, cfg.d_model), generator=gen, device="cuda").to(dt)
+    pos = torch.arange(13, device="cuda")[None].expand(BATCH, 13)
+    ck = torch.zeros((BATCH, 13, kv, hd), dtype=dt, device="cuda")
+    cv = torch.zeros_like(ck)
+    o1, _ = L.attention(p, cfg, x[:, :12], pos[:, :12], kv_cache=(ck, cv), cache_pos=0,
+                        prefill_mode=True)
+    o2, _ = L.attention(p, cfg, x[:, 12:], pos[:, 12:], kv_cache=(ck, cv), cache_pos=12)
+    for o in (o1, o2):
+        o = o.reshape(BATCH, -1, h, hd)
+        require(bool((o[:, :, pad] == 0).all()) and bool((o[:, :, ~pad] != 0).any()),
+                "scout: a padding head's attention output is not exactly 0")
+    log(f"phase 16 scout {dt}: {int(pad.sum())} padding heads of {h} exactly 0 at prefill "
+        "(flash) and decode")
+
+
+def family_serve(torch, arch, model, params):
+    """``ServingEngine.serve`` of llava's text backbone (the engine feeds no
+    prefix, as the reference's): 8 requests of 12-token prompts, batch 4,
+    16 new tokens, bf16, the counts as phase 4's.  Returns its launches."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Request, ServingEngine
+    _, graph, planner, link = serving_setup(arch)
+    cfg = model.cfg
+    engine = ServingEngine(model, params, graph, planner, link, batch_size=BATCH,
+                           dtype=torch.bfloat16)
+    calls = record_calls(model)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = engine.serve(make_requests(Request, cfg.vocab_size,
+                                       [(SHORT_PROMPT, SHORT_SLO)] * 8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del model.prefill, model.decode_step         # record_calls' wrappers
+    counts = {k: v for k, v in launch_counts().items() if v}
+    want = expected_launches(model, calls["prompts"], calls["steps"])
+    n_tok = sum(len(v) for v in stats.tokens.values())
+    log(f"phase 16 serve {cfg.name} (text backbone): {stats.summary()}; exits "
+        f"{stats.exits}; {n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} tokens/s; "
+        f"launches {counts}, from the model's structure {want}")
+    require(len(stats.tokens) == 8 and all(len(t) == NEW_TOKENS and
+                                           all(0 <= x < cfg.padded_vocab for x in t)
+                                           for t in stats.tokens.values()),
+            "serve llava: bad tokens")
+    for name, n in want.items():
+        require(counts.get(name, 0) == n, f"serve llava: {counts.get(name, 0)} {name} "
+                f"launches, the model's structure gives {n}")
+    return counts
+
+
+def cache_bytes(cache):
+    return sum(t.numel() * t.element_size() for t in _leaves(cache))
+
+
+def family_phase(torch):
+    """Phase 16: llava, seamless and scout at full width (scout's depth cut,
+    SCOUT_LAYERS), each in bf16 through the kernels with its launches
+    counted, then in float32 kernel path against plain path, held.
+    Returns the launches of the bf16 runs, by kernel and by model."""
+    import gc
+
+    from repro_torch.models import Model
+
+    launches = {}
+
+    def add(arch, counts):
+        for name, n in counts.items():
+            launches.setdefault(name, {}).setdefault(arch, 0)
+            launches[name][arch] += n
+
+    def shadow_log(label, worst):
+        log(f"phase 16 {label}: launches held on their own inputs (count, worst share "
+            f"of the allowed error, max_abs_err) {worst}")
+        require(all(s <= 1.0 for _, s, _ in worst.values()),
+                f"{label}: a launch disagrees with its plain version on its inputs")
+
+    def gen0():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    # -- llava-next-mistral-7b: full width and depth
+    cfg = family_config(LLAVA)
+    model = Model(cfg)
+    params = model.init_params(gen0(), dtype=torch.bfloat16, device="cuda")
+    log(f"phase 16 {LLAVA}: {cfg.num_layers} layers d {cfg.d_model} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.hd} d_ff {cfg.d_ff} vocab "
+        f"{cfg.padded_vocab}, segments {model.segment_lengths()}, "
+        f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params in bf16; prefix "
+        f"[{LLAVA_BATCH}, {cfg.num_prefix_tokens}, 1024] + {LLAVA_TEXT} text tokens; "
+        "nothing cut")
+    toks, extra = family_inputs(torch, cfg, LLAVA_BATCH, LLAVA_TEXT)
+    res, counts = counted_run(torch, LLAVA, "bf16", model, params, toks, extra)
+    add(LLAVA, counts)
+    full_bytes = cache_bytes(res["cache"])
+    del res
+    res, counts = counted_run(torch, LLAVA, "bf16 int8 cache", model, params, toks, extra,
+                              quant=True)
+    add(LLAVA, counts)
+    q_bytes = cache_bytes(res["cache"])
+    log(f"phase 16 {LLAVA}: int8 cache {q_bytes / 1e6:.1f} MB against the bf16 cache's "
+        f"{full_bytes / 1e6:.1f} MB: {q_bytes / full_bytes:.4f} (tol {INT8_BYTES})")
+    require(q_bytes < INT8_BYTES * full_bytes, "llava: the int8 cache is not under "
+            f"{INT8_BYTES} of the bf16 cache's bytes")
+    del res
+    add(LLAVA, family_serve(torch, LLAVA, model, params))
+    # f32 hold at B1: kernel path against plain path, and the int8 cache
+    params32 = _to_f32(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks1, extra1 = toks[:1], {k: v[:1] for k, v in extra.items()}
+    plain = family_run(torch, model, params32, toks1, extra1, impl="dense", margins=True)
+    feed = {e: v[0] for e, v in plain.items() if e not in ("prefill", "cache", "calls")}
+    worst = {}
+    with shadowed_kernels(torch, worst):
+        kern = family_run(torch, model, params32, toks1, extra1, feed=feed)
+    shadow_log(f"{LLAVA} f32", worst)
+    held_paths(torch, f"{LLAVA} f32 B1", kern, plain)
+    q8 = family_run(torch, model, params32, toks1, extra1, quant=True, feed=feed)
+    rel = max((q8[e][2] - kern[e][2]).abs().max().item() / kern[e][2].abs().max().item()
+              for e in feed)
+    log(f"phase 16 {LLAVA} f32 B1: int8-cache decode against the unquantized cache's "
+        f"(same tokens), worst rel of the last hidden over the exits {rel:.4g} "
+        f"(tol {INT8_REL})")
+    require(rel < INT8_REL, f"llava: int8 decode rel {rel} >= {INT8_REL}")
+    del plain, kern, q8, params32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- seamless-m4t-large-v2: full width and depth
+    cfg = family_config(SEAMLESS)
+    model = Model(cfg)
+    params = model.init_params(gen0(), dtype=torch.bfloat16, device="cuda")
+    log(f"phase 16 {SEAMLESS}: {cfg.num_encoder_layers} encoder + {cfg.num_layers} decoder "
+        f"layers d {cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} of {cfg.hd} vocab "
+        f"{cfg.padded_vocab}, decoder segments {model.segment_lengths()}, "
+        f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B params in bf16; frames "
+        f"[{BATCH}, {ENC_FRAMES}, 1024], {DEC_PROMPT}-token decoder prefill; nothing cut")
+    toks, extra = family_inputs(torch, cfg, BATCH, DEC_PROMPT)
+    res, counts = counted_run(torch, SEAMLESS, "bf16", model, params, toks, extra)
+    add(SEAMLESS, counts)
+    del res
+    params32 = _to_f32(params)
+    del params
+    plain = family_run(torch, model, params32, toks, extra, impl="dense", margins=True)
+    feed = {e: v[0] for e, v in plain.items() if e not in ("prefill", "cache", "calls")}
+    worst = {}
+    with shadowed_kernels(torch, worst):
+        kern = family_run(torch, model, params32, toks, extra, feed=feed)
+    shadow_log(f"{SEAMLESS} f32", worst)
+    require(worst.get("flash non-causal", (0,))[0] > 0, "seamless: no non-causal flash ran")
+    held_paths(torch, f"{SEAMLESS} f32", kern, plain)
+    del plain, kern, params32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- llama4-scout-17b-a16e: full width, depth cut (SCOUT_LAYERS)
+    cfg = family_config(SCOUT, "bf16")
+    model = Model(cfg)
+    params = model.init_params(gen0(), dtype=torch.bfloat16, device="cuda")
+    log(f"phase 16 {SCOUT}: d {cfg.d_model} heads {cfg.num_heads} padded to "
+        f"{cfg.padded_heads} over {cfg.num_kv_heads} of {cfg.hd}, {cfg.num_experts} experts "
+        f"of d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}; reduced: depth 48 -> "
+        f"{SCOUT_LAYERS['bf16']} layers in bf16 ({SCOUT_LAYERS['f32']} for the f32 hold), "
+        "as 48 layers hold ~201 GB of bf16 weights, beyond one card's 80 GB; segments "
+        f"{model.segment_lengths()}, {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B "
+        "params in bf16; einsum dispatch")
+    toks, extra = family_inputs(torch, cfg, BATCH, LONG_PROMPT)
+    res, counts = counted_run(torch, SCOUT, "bf16", model, params, toks, extra)
+    add(SCOUT, counts)
+    del res
+    padded_heads_zero(torch, model, params)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = family_config(SCOUT, "f32")
+    model = Model(cfg)
+    params32 = model.init_params(gen0(), dtype=torch.float32, device="cuda")
+    padded_heads_zero(torch, model, params32)
+    # the gather dispatch against the einsum dispatch on the same input, the
+    # embedded 1000-token prompts, at the reference's own tolerance for the
+    # pair (tests/test_layers.py: 2e-4, the aux loss 1e-5 relative)
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+    x = TF._embed_inputs(cfg, params32, toks, None)
+    lp = {k: v[0] for k, v in params32["segments"][0]["moe"].items()}
+    ye, ae = MOE.moe_ffn(lp, cfg, x, dispatch_mode="einsum")
+    yg, ag = MOE.moe_ffn(lp, cfg, x, dispatch_mode="gather")
+    ge = (ye - yg).abs().max().item()
+    dropped = int((yg == 0).all(-1).sum())
+    log(f"phase 16 {SCOUT} f32: gather against einsum dispatch on [{BATCH}, {LONG_PROMPT}, "
+        f"{cfg.d_model}]: max_abs_err {ge:.3g}, aux {ae.item():.6g} / {ag.item():.6g}, "
+        f"{dropped} tokens dropped past capacity {MOE._capacity(LONG_PROMPT, cfg)}")
+    require(ge <= 2e-4 and abs(ae.item() - ag.item()) <= 1e-5 * abs(ae.item()),
+            "scout: the gather dispatch disagrees with the einsum dispatch")
+    del x, ye, yg
+    routes_p, routes_k = [], []
+    with recorded_routes(torch, routes_p):
+        plain = family_run(torch, model, params32, toks, extra, impl="dense", margins=True)
+    feed = {e: v[0] for e, v in plain.items() if e not in ("prefill", "cache", "calls")}
+    worst = {}
+    with shadowed_kernels(torch, worst), recorded_routes(torch, routes_k):
+        kern = family_run(torch, model, params32, toks, extra, feed=feed)
+    shadow_log(f"{SCOUT} f32", worst)
+    require(worst.get("G6", (0,))[0] > 0, "scout: no G = 6 launch was held")
+    held_paths(torch, f"{SCOUT} f32", kern, plain, routes=(routes_k, routes_p))
+    del plain, kern, params32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2094,6 +2719,7 @@ def main() -> int:
     record = kernel_checks(torch, timer)
     del timer
     torch.cuda.empty_cache()
+    at_families = family_kernel_times(torch)
 
     # -- 4-9 the main paths, each with its kernel path against its plain path
     launches, at_arena = {}, {}
@@ -2147,6 +2773,18 @@ def main() -> int:
     del timer, probe
     torch.cuda.empty_cache()
 
+    # -- 16 the remaining families at full width, their walls too before any
+    #    profiler session
+    torch.cuda.reset_peak_memory_stats()
+    t16 = time.perf_counter()
+    by_family = family_phase(torch)
+    log(f"chip_smoke: phase 16 took {time.perf_counter() - t16:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches by model {by_family}")
+    for name, per_model in by_family.items():
+        launches[name] = launches.get(name, 0) + sum(per_model.values())
+        for label, t in at_families.get(name, {}).items():
+            t["launches"] = per_model.get(label.split()[0], 0)
+
     arena_profile(torch, (LLAMA, ZAMBA))
     t_prof = time.perf_counter()
     lm_train_profile(torch, lm_walls)
@@ -2174,8 +2812,10 @@ def main() -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": t["shape"], "dtype": t["dtype"],
-                        **({"at_arena": at_arena[name]} if name in at_arena else {})})
-    log(f"chip_smoke: phases 1-15 took {time.perf_counter() - t_start:.1f} s")
+                        **({"at_arena": at_arena[name]} if name in at_arena else {}),
+                        **({"at_families": at_families[name]} if at_families.get(name)
+                           else {})})
+    log(f"chip_smoke: phases 1-16 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

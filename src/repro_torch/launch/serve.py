@@ -10,7 +10,13 @@ On the card (``--device cuda``, the default) it serves the full-size config
 in bfloat16 through the port's kernels; with ``--device cpu`` it serves the
 smoke config in float32 through the kernels' plain versions, as the
 reference does on its CPU.  Run on the card so far: ``llama3.2-1b``,
-``rwkv6-3b`` and ``zamba2-2.7b`` (its shared attention at head dim 80).
+``rwkv6-3b``, ``zamba2-2.7b`` (its shared attention at head dim 80) and
+``llava-next-mistral-7b`` (its mistral-7b text backbone: the serving engine
+feeds no image prefix, as the reference's).  Refused before any weight is
+made (:func:`refusal`): ``seamless-m4t-large-v2`` anywhere, since the
+serving engine feeds no audio frames to its encoder (nor does the
+reference's), and on the card a model whose bf16 weights exceed the card's
+memory (``llama4-scout-17b-a16e``, ``llama4-maverick-400b-a17b``).
 """
 from __future__ import annotations
 
@@ -29,6 +35,20 @@ from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving.tiers import Link
 
 
+def refusal(cfg, on_card: bool, card_bytes: int):
+    """Why ``cfg`` cannot be served here (None when it can): the enc-dec
+    needs frames the serving engine does not feed; on the card, the full
+    config's bf16 weights must fit in ``card_bytes``."""
+    if cfg.is_encdec:
+        return (f"{cfg.name} is an encoder-decoder: the serving engine feeds no "
+                "audio frames to its encoder (nor does the reference's)")
+    weight_bytes = 2 * cfg.param_count()
+    if on_card and weight_bytes > card_bytes:
+        return (f"{cfg.name}: {weight_bytes / 1e9:.1f} GB of bf16 weights exceed "
+                f"the card's {card_bytes / 1e9:.1f} GB")
+    return None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
@@ -44,6 +64,10 @@ def main(argv=None):
     device = resolve(args.device)
     on_card = device.type == "cuda"
     cfg = get_config(args.arch) if on_card else get_smoke_config(args.arch)
+    card_bytes = torch.cuda.get_device_properties(device).total_memory if on_card else 0
+    why = refusal(cfg, on_card, card_bytes)
+    if why is not None:
+        raise SystemExit(f"cannot serve --arch {args.arch}: {why}")
     dtype = torch.bfloat16 if on_card else torch.float32
     model = Model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)

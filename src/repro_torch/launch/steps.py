@@ -22,12 +22,15 @@ def make_train_step(model: Model, shape: ShapeConfig, *, device="cuda",
                     moment_dtype=torch.float32, peak_lr: float = 3e-4,
                     warmup: int = 200, total_steps: int = 10000,
                     remat: bool = True, attn_impl: str = "auto",
-                    ce_chunk: int = 512, scan_chunk: int = 16):
+                    ce_chunk: int = 512, scan_chunk: int = 16,
+                    moe_dispatch: str = "einsum"):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "final_ce"})``: the joint multi-exit loss and its backward,
     the learning rate of the warm-up cosine at the optimiser's step, then
-    AdamW.  ``batch`` is ``{"tokens": [B, shape.seq_len]}`` on ``device``
-    (``adamw_init(params, moment_dtype)`` makes the state).  The step
+    AdamW.  ``batch`` is ``{"tokens": [B, shape.seq_len]}`` on ``device``,
+    with ``frames`` for the enc-dec and ``prefix_emb`` for the VLM (see
+    :meth:`Model.loss`; ``adamw_init(params, moment_dtype)`` makes the
+    state).  The step
     works on leaves that require grad (parameters restored from a
     checkpoint do not, so it marks them) and clears their grads when
     done; the returned parameters are new tensors, the given ones are not
@@ -39,7 +42,8 @@ def make_train_step(model: Model, shape: ShapeConfig, *, device="cuda",
     def train_step(params, opt_state, batch):
         params = T.tree_map(lambda p: p.detach().to(dev).requires_grad_(), params)
         loss, metrics = model.loss(params, batch, remat=remat, attn_impl=attn_impl,
-                                   scan_chunk=scan_chunk, ce_chunk=ce_chunk)
+                                   scan_chunk=scan_chunk, ce_chunk=ce_chunk,
+                                   moe_dispatch=moe_dispatch)
         loss.backward()
         leaves = T.leaves(params)
         grads = T.unflatten(params, [torch.zeros_like(p) if p.grad is None else p.grad

@@ -27,11 +27,32 @@ from repro_torch.data.synthetic import token_batches
 from repro_torch.device import resolve
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.api import Model
+from repro_torch.models.encdec import AUDIO_DIM
+from repro_torch.models.transformer import VIS_DIM
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.runtime.fault_tolerance import FailureInjector, ResilientLoop
 
 #: checkpoints go under the checkout's build directory unless told otherwise
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_ckpt"
+
+
+def train_batch(cfg, tokens, step: int, seq: int, device):
+    """Step ``step``'s batch from its ``tokens`` [B, seq], as the
+    reference's trainer builds it: the enc-dec gets standard-normal stub
+    frames [B, seq, 1024], the VLM a standard-normal stub prefix [B, P,
+    1024] and its tokens cut to ``seq - P + 1``, so that prefix and text
+    fill ``seq`` positions.  The noise is drawn from a generator seeded
+    with ``step`` (the reference folds the step into its key)."""
+    batch = {"tokens": tokens}
+    gen = torch.Generator(device=device).manual_seed(step)
+    B = tokens.shape[0]
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((B, seq, AUDIO_DIM), generator=gen, device=device)
+    if cfg.frontend == "vision":
+        P = cfg.num_prefix_tokens
+        batch["prefix_emb"] = torch.randn((B, P, VIS_DIM), generator=gen, device=device)
+        batch["tokens"] = tokens[:, : seq - P + 1]
+    return batch
 
 
 def train(arch="llama3.2-1b", *, smoke=True, steps=200, batch=8, seq=64,
@@ -62,7 +83,7 @@ def train(arch="llama3.2-1b", *, smoke=True, steps=200, batch=8, seq=64,
     def step_fn(state, i):
         params, opt = state
         tokens = torch.from_numpy(next(data)).to(dev)
-        params, opt, metrics = step(params, opt, {"tokens": tokens})
+        params, opt, metrics = step(params, opt, train_batch(cfg, tokens, i, seq, dev))
         loss = float(metrics["loss"])
         losses.append(loss)
         if i % 20 == 0:

@@ -1,10 +1,10 @@
 """Unified model facade (the counterpart of ``src/repro/models/api.py``).
 
-``Model(cfg)`` dispatches to the family stack (``transformer`` for the dense
-family, ``ssm_stack`` for the ssm and hybrid families) and exposes
-``init_params / loss / init_cache / prefill / decode_step / logits /
-forward``.  Every other family raises :class:`NotImplementedError` naming
-the ``ROADMAP.md`` item that brings it.
+``Model(cfg)`` dispatches to the family stack (``ssm_stack`` for the ssm
+and hybrid families, ``encdec`` for the encoder-decoder, ``transformer``
+for the dense, MoE and VLM families) and exposes ``init_params / loss /
+init_cache / prefill / decode_step / logits / forward``.  The enc-dec takes
+``frames`` and the VLM ``prefix_emb`` where the reference's do.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models import ssm_stack, transformer
+from repro_torch.models import encdec, ssm_stack, transformer
 
 
 EXIT_LOSS_WEIGHT = 0.3  # BranchyNet-style joint loss: side exits weighted
@@ -61,30 +61,18 @@ def softmax_xent(hidden, embed_table, labels, mask=None, chunk: int = 512):
     return torch.mean(ce_all)
 
 
-def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    """The ``ROADMAP.md`` queue step (open item 1) that ports ``cfg``'s
-    family, or None for the families the port serves."""
+def _stack(cfg: ModelConfig):
     if cfg.family in ("ssm", "hybrid"):
-        return None
+        return ssm_stack
     if cfg.is_encdec:
-        return "step 8, enc-dec (models/encdec.py)"
-    if cfg.num_experts:
-        return "step 8, MoE (models/moe.py)"
-    if cfg.frontend != "none":
-        return "step 8, the VLM prefix"
-    if cfg.family != "dense":
-        return f"step 8, the {cfg.family} family"
-    return None
+        return encdec
+    return transformer
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        missing = _unsupported(cfg)
-        if missing is not None:
-            raise NotImplementedError(
-                f"{cfg.name} is not ported yet: ROADMAP.md open item 1, {missing}")
         self.cfg = cfg
-        self.stack = ssm_stack if cfg.family in ("ssm", "hybrid") else transformer
+        self.stack = _stack(cfg)
 
     # ------------------------------------------------------------------ params
     def init_params(self, generator: Optional[torch.Generator] = None,
@@ -100,23 +88,34 @@ class Model:
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch, *, remat=True, attn_impl="auto", scan_chunk=16,
-             ce_chunk=512):
+             ce_chunk=512, moe_dispatch="einsum"):
         """Joint multi-exit next-token CE (BranchyNet): each side exit
         weighted EXIT_LOSS_WEIGHT, the final exit 1, normalised, plus 0.01 of
-        the stack's auxiliary loss.  batch: {"tokens": [B, S+1]}.  Returns
-        (loss, metrics).  ``ce_chunk`` is the CE's slice: the reference's
+        the stack's auxiliary loss (the MoE's load balance).  batch:
+        {"tokens": [B, S+1]}, plus ``frames`` [B, S_enc, 1024] for the
+        enc-dec and ``prefix_emb`` [B, P, 1024] for the VLM, whose first P
+        hidden rows (the prefix) are dropped before the CE.  Returns (loss,
+        metrics).  ``ce_chunk`` is the CE's slice: the reference's
         ``Model.loss`` takes ``softmax_xent``'s default of 512, which its
         ``make_train_step`` accepts as ``ce_chunk`` and does not pass on."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         kw: Dict[str, Any] = dict(remat=remat, impl=attn_impl)
-        if self.stack is ssm_stack:
-            kw["scan_chunk"] = scan_chunk
-        outs, aux = self.stack.forward(self.cfg, params, inputs, **kw)
+        if self.stack is encdec:
+            outs, aux = encdec.forward(cfg, params, inputs, batch["frames"], **kw)
+        elif self.stack is ssm_stack:
+            outs, aux = ssm_stack.forward(cfg, params, inputs, scan_chunk=scan_chunk, **kw)
+        else:
+            outs, aux = transformer.forward(cfg, params, inputs,
+                                            prefix_emb=batch.get("prefix_emb"),
+                                            moe_dispatch=moe_dispatch, **kw)
+        P = cfg.num_prefix_tokens if (cfg.frontend == "vision"
+                                      and batch.get("prefix_emb") is not None) else 0
         losses = []
         for i, (_, h) in enumerate(outs):
             w = 1.0 if i == len(outs) - 1 else EXIT_LOSS_WEIGHT
-            losses.append((w, softmax_xent(h, params["embed"], labels,
+            losses.append((w, softmax_xent(h[:, P:], params["embed"], labels,
                                            chunk=ce_chunk)))
         total = sum(w * l for w, l in losses) / sum(w for w, _ in losses)
         total = total + 0.01 * aux
@@ -125,33 +124,68 @@ class Model:
         return total, metrics
 
     # ------------------------------------------------------------------ eval
-    def forward(self, params, tokens, *, exit_point=None, impl="kernel"):
+    def forward(self, params, tokens, *, exit_point=None, impl="kernel", frames=None,
+                prefix_emb=None, moe_dispatch="einsum"):
         """Every exit's normed hidden state, a list of (exit_idx, hidden)."""
-        outs, _ = self.stack.forward(self.cfg, params, tokens,
-                                     exit_point=exit_point, impl=impl)
+        cfg = self.cfg
+        if self.stack is encdec:
+            outs, _ = encdec.forward(cfg, params, tokens, frames, exit_point=exit_point,
+                                     impl=impl)
+        elif self.stack is ssm_stack:
+            outs, _ = ssm_stack.forward(cfg, params, tokens, exit_point=exit_point,
+                                        impl=impl)
+        else:
+            outs, _ = transformer.forward(cfg, params, tokens, prefix_emb,
+                                          exit_point=exit_point, impl=impl,
+                                          moe_dispatch=moe_dispatch)
         return outs
 
     # ------------------------------------------------------------------ serving
-    def init_cache(self, batch, max_seq, dtype=torch.bfloat16, device="cuda"):
-        return self.stack.init_cache(self.cfg, batch, max_seq, dtype, device)
+    def init_cache(self, batch, max_seq, dtype=torch.bfloat16, device="cuda",
+                   enc_len=None, quant=False):
+        """``enc_len`` (enc-dec only): the cross caches' length, ``max_seq``
+        when None.  ``quant``: the int8 KV cache, which the transformer stack
+        alone has (the reference builds an unquantized cache for the other
+        stacks without a word; here they refuse it)."""
+        cfg = self.cfg
+        if quant and self.stack is not transformer:
+            raise ValueError(f"{cfg.name}: the int8 KV cache is the transformer "
+                             "stack's only")
+        if self.stack is encdec:
+            return encdec.init_cache(cfg, batch, max_seq, enc_len or max_seq, dtype,
+                                     device)
+        if self.stack is transformer:
+            return transformer.init_cache(cfg, batch, max_seq, dtype, device, quant=quant)
+        return ssm_stack.init_cache(cfg, batch, max_seq, dtype, device)
 
-    def prefill(self, params, tokens, cache, *, impl="kernel"):
-        return self.stack.prefill(self.cfg, params, tokens, cache, impl=impl)
+    def prefill(self, params, tokens, cache, *, frames=None, prefix_emb=None,
+                impl="kernel", moe_dispatch="einsum"):
+        cfg = self.cfg
+        if self.stack is encdec:
+            return encdec.prefill(cfg, params, tokens, cache, frames, impl=impl)
+        if self.stack is ssm_stack:
+            return ssm_stack.prefill(cfg, params, tokens, cache, impl=impl)
+        return transformer.prefill(cfg, params, tokens, cache, prefix_emb, impl=impl,
+                                   moe_dispatch=moe_dispatch)
 
     def decode_step(self, params, cache, tokens, pos, *, exit_point=None,
-                    with_exit_confidence=False, impl="kernel", mask=None):
-        """``with_exit_confidence`` is ignored by the ssm and hybrid
+                    with_exit_confidence=False, impl="kernel", mask=None,
+                    moe_dispatch="einsum"):
+        """``with_exit_confidence`` is ignored by the ssm, hybrid and enc-dec
         families, which report no intermediate exits (``[]``), as the
         reference.  ``mask`` ([B] bool) commits the cache writes of its
         rows only (the arena's masked commit)."""
+        cfg = self.cfg
+        if self.stack is encdec:
+            return encdec.decode_step(cfg, params, cache, tokens, pos,
+                                      exit_point=exit_point, impl=impl, mask=mask)
         if self.stack is ssm_stack:
-            return ssm_stack.decode_step(self.cfg, params, cache, tokens, pos,
-                                         exit_point=exit_point, impl=impl,
-                                         mask=mask)
-        return transformer.decode_step(self.cfg, params, cache, tokens, pos,
+            return ssm_stack.decode_step(cfg, params, cache, tokens, pos,
+                                         exit_point=exit_point, impl=impl, mask=mask)
+        return transformer.decode_step(cfg, params, cache, tokens, pos,
                                        exit_point=exit_point,
                                        with_exit_confidence=with_exit_confidence,
-                                       impl=impl, mask=mask)
+                                       impl=impl, mask=mask, moe_dispatch=moe_dispatch)
 
     def logits(self, params, hidden):
         return L.logits(params["embed"], hidden)

@@ -6,7 +6,7 @@ parameters: the caller turns the JAX pytree into nested dicts of numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``) and hands it here.
 Weights keep the reference's ``[in, out]`` layout (the port multiplies
 ``x @ W`` as the reference does), so every leaf is copied as it is, and the
-port's tree has the reference's structure for every family it serves.
+port's tree has the reference's structure for every family.
 
 BranchyAlexNet's parameters (a dict of layers keyed by name) convert with
 :func:`alexnet_params_from_numpy`: its conv weights turn from the
@@ -22,8 +22,9 @@ from repro_torch.device import resolve
 from repro_torch.models.api import Model
 
 #: leaves that stay float32 whatever the model dtype, as in the reference
-#: (RWKV-6's decay base and bonus, Mamba-2's A, D and dt bias)
-F32_LEAVES = ("w0", "u", "A_log", "D", "dt_bias")
+#: (RWKV-6's decay base and bonus, Mamba-2's A, D and dt bias, the MoE
+#: router)
+F32_LEAVES = ("w0", "u", "A_log", "D", "dt_bias", "router")
 
 
 def _convert(tree, dtype, device, key=None):
@@ -43,21 +44,32 @@ def _leaves(tree):
         yield tree
 
 
+def _check_depth(name, tree, n):
+    depths = {np.shape(leaf)[0] for leaf in _leaves(tree)}
+    if depths != {n}:
+        raise ValueError(f"{name} stacks {sorted(depths)} units, config has {n}")
+
+
 def params_from_numpy(cfg: ModelConfig, tree, *, dtype=torch.float32,
                       device="cuda"):
     """``tree``: the reference's parameter pytree of numpy arrays —
     ``embed`` [V, D], ``segments`` (a tuple with one dict per segment of
-    stacked ``[n, ...]`` unit leaves), ``final_norm`` [D], ``exit_norms``
-    [n_seg - 1, D] and, for the hybrid family, the unstacked
-    ``shared_attn`` and ``shared_ffn``.  Returns the port's parameter dict."""
+    stacked ``[n, ...]`` unit leaves: ``attn``/``ffn``, the MoE's
+    ``attn``/``moe`` or ``attn0``/``ffn``/``attn1``/``moe``, the enc-dec
+    decoder's ``attn``/``xattn``/``ffn``), ``final_norm`` [D],
+    ``exit_norms`` [n_seg - 1, D] and, by family, the hybrid's unstacked
+    ``shared_attn`` and ``shared_ffn``, the VLM's ``mm_proj`` [1024, D], the
+    enc-dec's ``audio_proj`` [1024, D], ``encoder`` (stacked over
+    ``num_encoder_layers``) and ``enc_norm``.  Returns the port's parameter
+    dict, every leaf in ``dtype`` but :data:`F32_LEAVES`."""
     dev = resolve(device)
     segs = Model(cfg).segment_lengths()
     if len(tree["segments"]) != len(segs):
         raise ValueError(f"{len(tree['segments'])} segments, config has {len(segs)}")
     for n, seg in zip(segs, tree["segments"]):
-        depths = {np.shape(leaf)[0] for leaf in _leaves(seg)}
-        if depths != {n}:
-            raise ValueError(f"segment stacks {sorted(depths)} units, config has {n}")
+        _check_depth("segment", seg, n)
+    if cfg.is_encdec:
+        _check_depth("encoder", tree["encoder"], cfg.num_encoder_layers)
     return _convert(tree, dtype, dev)
 
 

@@ -146,7 +146,9 @@ def _write_cache(buf, val, cache_pos, mask=None):
     state only where the mask is set: a row outside it writes back the
     value it already holds, bit for bit, so several calls with disjoint
     masks may sweep one cache in turn.  The old value is gathered on the
-    card, so the commit needs no host sync."""
+    card, so the commit needs no host sync.  ``buf`` is [B, T, ...]: a k/v
+    leaf [B, T, KV, hd] (int8 or the model dtype) or an int8 cache's scale
+    leaf [B, T, KV]."""
     S, T = val.shape[1], buf.shape[1]
     if isinstance(cache_pos, int):
         if mask is not None:
@@ -162,7 +164,8 @@ def _write_cache(buf, val, cache_pos, mask=None):
         idx = cache_pos.to(buf.device)
         new = val[:, 0].to(buf.dtype)
         if mask is not None:
-            new = torch.where(mask.view(-1, 1, 1), new, buf[rows, idx])
+            keep = mask.view((-1,) + (1,) * (new.ndim - 1))
+            new = torch.where(keep, new, buf[rows, idx])
         buf[rows, idx] = new
 
 
@@ -309,9 +312,27 @@ def _resolve_impl(impl: str, S: int, T: int):
     return impl, FLASH_BLOCK
 
 
+def quantize_int8(x):
+    """The int8 cache's quantizer: per (position, kv head) scales
+    ``max|x| / 127`` (at least 1e-8) over the head dim, values rounded half
+    to even and clipped to ±127.  x: [..., hd] -> (int8 [..., hd], bf16
+    scales [...]); the scales are bfloat16 whatever x's dtype, as the
+    reference's."""
+    xf = x.float()
+    sc = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / sc[..., None]), -127, 127).to(torch.int8)
+    return q, sc.to(torch.bfloat16)
+
+
+def dequantize_int8(q, scale, dtype):
+    """int8 values [..., hd] times their scales [...], in float32, cast to
+    ``dtype``."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
 def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
-              kv_cache=None, cache_pos=None, lengths=None, impl="kernel",
-              prefill_mode=False, write_mask=None):
+              kv_cache=None, cache_pos=None, lengths=None, cross_kv=None,
+              impl="kernel", prefill_mode=False, write_mask=None):
     """Full/cached attention.
 
     - training: ``kv_cache is None`` -> self attention over x.
@@ -323,6 +344,15 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
       ``cache_pos``; a decode step builds it once for all its layers, and it
       is built here when not given.  ``write_mask`` ([B] bool) commits the
       cache write of the rows it selects only (:func:`_write_cache`).
+    - int8 cache: ``kv_cache`` a dict of ``k``/``v`` (int8 [B,T,KV,hd]) and
+      ``k_scale``/``v_scale`` (bf16 [B,T,KV]); the new k/v are quantized
+      (:func:`quantize_int8`) and written, a prefill attends on the
+      unquantized block, and a decode dequantizes the whole cache to q's
+      dtype and attends on that.
+    - cross attention: ``cross_kv=(k,v)`` [B,T,KV,hd], the encoder memory's
+      precomputed keys and values: q is not roped and nothing is masked.
+      With ``impl="kernel"`` one query token (a decode step) goes to the
+      decode kernel over all T keys, more to the flash kernel unmasked.
     Returns (out [B,S,D], new_cache or None); the cache is written in place
     and returned.
 
@@ -345,30 +375,50 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
     h = p["wq"].shape[-1] // hd           # padded head count (cfg.padded_heads)
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     q = (xn @ p["wq"]).reshape(B, S, h, hd)
-    k = (xn @ p["wk"]).reshape(B, S, kv_h, hd)
-    v = (xn @ p["wv"]).reshape(B, S, kv_h, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
     new_cache = None
+    if cross_kv is not None:
+        k, v = cross_kv
+        causal = False
+        if impl == "kernel" and S == 1:
+            T = k.shape[1]
+            if lengths is None:
+                lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+            out = _mask_pad_heads(fa_ops.decode_attention(q, k, v, lengths), h)
+            return out.reshape(B, S, h * hd) @ p["wo"], None
+    else:
+        k = (xn @ p["wk"]).reshape(B, S, kv_h, hd)
+        v = (xn @ p["wv"]).reshape(B, S, kv_h, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is not None:
-        ck, cv = kv_cache
-        _write_cache(ck, k, cache_pos, write_mask)
-        _write_cache(cv, v, cache_pos, write_mask)
-        new_cache = (ck, cv)
+        if isinstance(kv_cache, dict):
+            k8, ks = quantize_int8(k)
+            v8, vs = quantize_int8(v)
+            for name, val in (("k", k8), ("v", v8), ("k_scale", ks), ("v_scale", vs)):
+                _write_cache(kv_cache[name], val, cache_pos, write_mask)
+            new_cache = kv_cache
+        else:
+            ck, cv = kv_cache
+            _write_cache(ck, k, cache_pos, write_mask)
+            _write_cache(cv, v, cache_pos, write_mask)
+            new_cache = (ck, cv)
         if not prefill_mode:
             # decode: attend to the filled cache
+            if isinstance(kv_cache, dict):
+                ck = dequantize_int8(kv_cache["k"], kv_cache["k_scale"], q.dtype)
+                cv = dequantize_int8(kv_cache["v"], kv_cache["v_scale"], q.dtype)
+            else:
+                ck, cv = ck.to(q.dtype), cv.to(q.dtype)
             T = ck.shape[1]
             if impl == "kernel":
                 if lengths is None:
                     lengths = decode_lengths(cache_pos, B, x.device)
-                out = fa_ops.decode_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                              lengths)
+                out = fa_ops.decode_attention(q, ck, cv, lengths)
             else:
-                bias = _decode_bias(cache_pos, S, T, x.device)
-                out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), bias)
+                out = _sdpa(q, ck, cv, _decode_bias(cache_pos, S, T, x.device))
             out = _mask_pad_heads(out, h)
             return out.reshape(B, S, h * hd) @ p["wo"], new_cache
-    impl, blk = _resolve_impl(impl, S, S)
+    impl, blk = _resolve_impl(impl, S, k.shape[1])
     if impl == "kernel":
         out = fa_ops.flash_attention(q, k, v, causal=causal)
     elif impl == "flash":

@@ -1,20 +1,25 @@
-"""Decoder-only LM stack, dense family (the counterpart of the dense branch
-of ``src/repro/models/transformer.py``).
+"""Decoder-only LM stack, dense / MoE / VLM families (the counterpart of
+``src/repro/models/transformer.py``).
 
 Layers are grouped into *segments* separated by early-exit heads (the
 paper's right-sizing knob); each segment's parameters are stacked along a
 leading ``[n_units]`` axis as in the reference, and a Python loop over the
-units takes the place of its ``lax.scan``.  Exit heads are tied to the
-embedding (RMSNorm + shared vocab projection).  With ``remat`` each unit
-runs under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
-of its scan body: the backward recomputes a unit's activations from its
-input.
+units takes the place of its ``lax.scan``.  A unit is one layer, attention
+and a SwiGLU FFN (dense) or the top-1 MoE FFN (``moe_period`` 1,
+llama4-scout); for ``moe_period == 2`` (llama4-maverick) it is the pair
+``attn0, ffn, attn1, moe``.  The MoE's auxiliary loss is summed over the
+units and returned by :func:`forward`.  The VLM (``frontend == "vision"``)
+puts ``prefix_emb @ mm_proj`` in front of the text embeddings, so its
+positions run 0..P+S-1.  Exit heads are tied to the embedding (RMSNorm +
+shared vocab projection).  With ``remat`` each unit runs under
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its scan
+body.
 
 The KV cache keeps the reference's per-segment layout, a tuple of dicts of
-``[n_units, B, T, KV, hd]`` tensors, and is written in place.
-
-The MoE, VLM-prefix and int8-cache branches wait for their slices
-(``ROADMAP.md``); :class:`repro_torch.models.api.Model` refuses them.
+``[n_units, B, T, KV, hd]`` tensors keyed ``attn_k``/``attn_v`` (or
+``attn0_*``/``attn1_*``), and is written in place; the int8 cache
+(``init_cache(quant=True)``) adds ``*_k_scale``/``*_v_scale`` bf16 leaves
+``[n_units, B, T, KV]``.
 """
 from __future__ import annotations
 
@@ -28,6 +33,9 @@ from repro_torch.device import resolve
 from repro_torch.kernels.exit_head import ops as eh_ops
 from repro_torch.kernels.exit_head import ref as eh_ref
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+
+VIS_DIM = 1024  # stub modality-frontend embedding width
 
 
 # ----------------------------------------------------------------------------
@@ -66,26 +74,45 @@ def segment_lengths(cfg: ModelConfig):
 # params
 # ----------------------------------------------------------------------------
 
+def attn_names(cfg: ModelConfig):
+    """The attention blocks of a unit, which name its cache leaves."""
+    return ["attn0", "attn1"] if (cfg.num_experts and unit_size(cfg) == 2) else ["attn"]
+
+
+def _init_unit(generator, cfg: ModelConfig, dtype, dev, n: int):
+    if cfg.num_experts and unit_size(cfg) == 2:
+        return {"attn0": L.init_attn(generator, cfg, dtype, dev, stack=n),
+                "ffn": L.init_ffn(generator, cfg, dtype, dev, stack=n),
+                "attn1": L.init_attn(generator, cfg, dtype, dev, stack=n),
+                "moe": MOE.init_moe(generator, cfg, dtype, dev, stack=n)}
+    if cfg.num_experts:
+        return {"attn": L.init_attn(generator, cfg, dtype, dev, stack=n),
+                "moe": MOE.init_moe(generator, cfg, dtype, dev, stack=n)}
+    return {"attn": L.init_attn(generator, cfg, dtype, dev, stack=n),
+            "ffn": L.init_ffn(generator, cfg, dtype, dev, stack=n)}
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 dtype=torch.bfloat16, device="cuda"):
     """Random parameters drawn from ``generator`` (a seeded
     :class:`torch.Generator` on ``device``; seed 0 when None).  Torch cannot
     replay the reference's ``jax.random`` stream: to hold the port against
     the reference, convert its parameters with
-    :func:`repro_torch.models.convert.params_from_numpy` instead."""
+    :func:`repro_torch.models.convert.params_from_numpy` instead.  The MoE
+    router is float32 whatever ``dtype``."""
     dev = resolve(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     segs = segment_lengths(cfg)
     params = {"embed": L.init_embed(generator, cfg, dtype, dev)}
-    params["segments"] = tuple(
-        {"attn": L.init_attn(generator, cfg, dtype, dev, stack=n),
-         "ffn": L.init_ffn(generator, cfg, dtype, dev, stack=n)}
-        for n in segs)
+    params["segments"] = tuple(_init_unit(generator, cfg, dtype, dev, n) for n in segs)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
     if cfg.num_exits:
         params["exit_norms"] = torch.ones((len(segs) - 1, cfg.d_model),
                                           dtype=dtype, device=dev)
+    if cfg.frontend == "vision":
+        params["mm_proj"] = L.dense_init(generator, (VIS_DIM, cfg.d_model), dtype,
+                                         VIS_DIM, dev)
     return params
 
 
@@ -101,46 +128,92 @@ def _units(tree, n: int):
     return [{k: v[u] for k, v in flat.items()} for u in range(n)]
 
 
+def _unit_fwd(cfg, lp, x, positions, *, impl, kv, cache_pos, lengths,
+              prefill_mode, write_mask, moe_dispatch):
+    """One unit.  ``kv``: this unit's cache leaves by name (``attn_k``, ...)
+    or None.  Returns (x, aux)."""
+    aux = 0.0
+
+    def attn(name, x):
+        c = None
+        if kv is not None:
+            if name + "_k_scale" in kv:
+                c = {sfx: kv[f"{name}_{sfx}"] for sfx in ("k", "v", "k_scale", "v_scale")}
+            else:
+                c = (kv[name + "_k"], kv[name + "_v"])
+        out, _ = L.attention(lp[name], cfg, x, positions, kv_cache=c,
+                             cache_pos=cache_pos, lengths=lengths, impl=impl,
+                             prefill_mode=prefill_mode, write_mask=write_mask)
+        return x + out
+
+    if cfg.num_experts and unit_size(cfg) == 2:
+        x = attn("attn0", x)
+        x = x + L.ffn(lp["ffn"], cfg, x)
+        x = attn("attn1", x)
+        mo, aux = MOE.moe_ffn(lp["moe"], cfg, x, dispatch_mode=moe_dispatch)
+        x = x + mo
+    elif cfg.num_experts:
+        x = attn("attn", x)
+        mo, aux = MOE.moe_ffn(lp["moe"], cfg, x, dispatch_mode=moe_dispatch)
+        x = x + mo
+    else:
+        x = attn("attn", x)
+        x = x + L.ffn(lp["ffn"], cfg, x)
+    return x, aux
+
+
 def _run_segment(cfg, seg_params, x, positions, *, impl="kernel",
                  seg_cache=None, cache_pos=None, lengths=None,
-                 prefill_mode=False, write_mask=None, remat=False):
-    """Run a segment's stacked units in order.  Returns (x, seg_cache); the
-    cache is written in place (only the rows of ``write_mask`` when given).
-    ``remat`` (no cache) checkpoints each unit."""
-    n = seg_params["attn"]["wq"].shape[0]
-    for u, lp in enumerate(_units(seg_params, n)):
-        kv = None
-        if seg_cache is not None:
-            kv = (seg_cache["attn_k"][u], seg_cache["attn_v"][u])
-
+                 prefill_mode=False, write_mask=None, remat=False,
+                 moe_dispatch="einsum"):
+    """Run a segment's stacked units in order.  Returns (x, aux_sum,
+    seg_cache); the cache is written in place (only the rows of
+    ``write_mask`` when given).  ``remat`` (no cache) checkpoints each
+    unit."""
+    n = seg_params[attn_names(cfg)[0]]["wq"].shape[0]
+    caches = _units(seg_cache, n) if seg_cache is not None else [None] * n
+    aux = 0.0
+    for lp, kv in zip(_units(seg_params, n), caches):
         def unit(x, lp=lp, kv=kv):
-            out, _ = L.attention(lp["attn"], cfg, x, positions, kv_cache=kv,
-                                 cache_pos=cache_pos, lengths=lengths, impl=impl,
-                                 prefill_mode=prefill_mode, write_mask=write_mask)
-            x = x + out
-            return x + L.ffn(lp["ffn"], cfg, x)
+            return _unit_fwd(cfg, lp, x, positions, impl=impl, kv=kv,
+                             cache_pos=cache_pos, lengths=lengths,
+                             prefill_mode=prefill_mode, write_mask=write_mask,
+                             moe_dispatch=moe_dispatch)
 
-        x = checkpoint(unit, x, use_reentrant=False) if remat else unit(x)
-    return x, seg_cache
+        x, a = checkpoint(unit, x, use_reentrant=False) if remat else unit(x)
+        aux = aux + a
+    return x, aux, seg_cache
 
 
-def forward(cfg: ModelConfig, params, tokens, *,
-            exit_point: Optional[int] = None, impl="auto", remat=False,
-            collect_exits=True):
-    """Training/eval forward.  Returns (list of (exit_idx, hidden_normed),
-    aux_loss); the dense family has no auxiliary loss (0.0).  Hidden states
-    are returned (not logits) so callers fuse the vocab projection with
-    their loss or confidence computation."""
-    B = tokens.shape[0]
+def _embed_inputs(cfg, params, tokens, prefix_emb):
+    """Token embeddings, with the VLM's projected prefix in front."""
     x = L.embed(params["embed"], tokens)
+    if cfg.frontend == "vision" and prefix_emb is not None:
+        px = prefix_emb.to(x.dtype) @ params["mm_proj"]
+        x = torch.cat([px, x], dim=1)
+    return x
+
+
+def forward(cfg: ModelConfig, params, tokens, prefix_emb=None, *,
+            exit_point: Optional[int] = None, impl="auto", remat=False,
+            collect_exits=True, moe_dispatch="einsum"):
+    """Training/eval forward.  Returns (list of (exit_idx, hidden_normed),
+    aux_loss): the MoE's load-balancing loss summed over its units (0.0 for
+    the dense family).  Hidden states are returned (not logits) so callers
+    fuse the vocab projection with their loss or confidence computation; a
+    VLM's cover its P prefix positions too."""
+    B = tokens.shape[0]
+    x = _embed_inputs(cfg, params, tokens, prefix_emb)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     segs = segment_lengths(cfg)
     n_seg = len(segs) if exit_point is None else exit_point + 1
     outs = []
+    aux = 0.0
     for si in range(n_seg):
-        x, _ = _run_segment(cfg, params["segments"][si], x, positions, impl=impl,
-                            remat=remat)
+        x, a, _ = _run_segment(cfg, params["segments"][si], x, positions, impl=impl,
+                               remat=remat, moe_dispatch=moe_dispatch)
+        aux = aux + a
         is_last = si == n_seg - 1
         if not is_last and cfg.num_exits and collect_exits:
             outs.append((si, L.rms_norm(x, params["exit_norms"][si], cfg.norm_eps)))
@@ -148,7 +221,7 @@ def forward(cfg: ModelConfig, params, tokens, *,
             norm = params["final_norm"] if exit_point in (None, len(segs) - 1) \
                 else params["exit_norms"][si]
             outs.append((si, L.rms_norm(x, norm, cfg.norm_eps)))
-    return outs, 0.0
+    return outs, aux
 
 
 # ----------------------------------------------------------------------------
@@ -156,31 +229,48 @@ def forward(cfg: ModelConfig, params, tokens, *,
 # ----------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device="cuda"):
+               device="cuda", quant: bool = False):
+    """Zeroed KV cache.  ``quant``: the int8 cache, int8 k/v with bf16
+    scales per (position, kv head), whatever ``dtype``."""
     dev = resolve(device)
     kvh, hd = cfg.num_kv_heads, cfg.hd
-    return tuple(
-        {"attn_k": torch.zeros((n, batch, max_seq, kvh, hd), dtype=dtype, device=dev),
-         "attn_v": torch.zeros((n, batch, max_seq, kvh, hd), dtype=dtype, device=dev)}
-        for n in segment_lengths(cfg))
+    cache = []
+    for n in segment_lengths(cfg):
+        seg = {}
+        for nm in attn_names(cfg):
+            shape = (n, batch, max_seq, kvh, hd)
+            kdt = torch.int8 if quant else dtype
+            seg[nm + "_k"] = torch.zeros(shape, dtype=kdt, device=dev)
+            seg[nm + "_v"] = torch.zeros(shape, dtype=kdt, device=dev)
+            if quant:
+                seg[nm + "_k_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                                   device=dev)
+                seg[nm + "_v_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                                   device=dev)
+        cache.append(seg)
+    return tuple(cache)
 
 
-def prefill(cfg: ModelConfig, params, tokens, cache, *, impl="kernel"):
-    """Fills cache positions [0, S); returns (final_hidden_last_tok, cache)."""
+def prefill(cfg: ModelConfig, params, tokens, cache, prefix_emb=None, *,
+            impl="kernel", moe_dispatch="einsum"):
+    """Fills cache positions [0, P + S) (P prefix positions for a VLM given
+    ``prefix_emb``); returns (final_hidden_last_tok, cache)."""
     B = tokens.shape[0]
-    x = L.embed(params["embed"], tokens)
+    x = _embed_inputs(cfg, params, tokens, prefix_emb)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for si, segp in enumerate(params["segments"]):
-        x, _ = _run_segment(cfg, segp, x, positions, impl=impl,
-                            seg_cache=cache[si], cache_pos=0, prefill_mode=True)
+        x, _, _ = _run_segment(cfg, segp, x, positions, impl=impl,
+                               seg_cache=cache[si], cache_pos=0, prefill_mode=True,
+                               moe_dispatch=moe_dispatch)
     h = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
     return h, cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
                 exit_point: Optional[int] = None,
-                with_exit_confidence: bool = False, impl="kernel", mask=None):
+                with_exit_confidence: bool = False, impl="kernel", mask=None,
+                moe_dispatch="einsum"):
     """One decode step.  tokens: [B,1]; pos: the cache position, an int for
     every row or a [B] integer tensor (one per row).  ``mask`` ([B] bool)
     commits the cache writes of the rows it selects only; every other row
@@ -207,9 +297,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     confs = []
     head = eh_ops.exit_confidence if impl == "kernel" else eh_ref.exit_confidence
     for si in range(n_seg):
-        x, _ = _run_segment(cfg, params["segments"][si], x, positions,
-                            impl=impl, seg_cache=cache[si], cache_pos=pos,
-                            lengths=lengths, write_mask=mask)
+        x, _, _ = _run_segment(cfg, params["segments"][si], x, positions,
+                               impl=impl, seg_cache=cache[si], cache_pos=pos,
+                               lengths=lengths, write_mask=mask,
+                               moe_dispatch=moe_dispatch)
         is_last = si == n_seg - 1
         if with_exit_confidence and not is_last and cfg.num_exits:
             h = L.rms_norm(x, params["exit_norms"][si], cfg.norm_eps)

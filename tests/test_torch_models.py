@@ -183,11 +183,22 @@ def test_cache_write_past_end_is_an_error(pair):
 
 
 def test_other_families_refuse():
-    from repro_torch.configs import get_config
-    for arch in ("llama4-scout-17b-a16e", "seamless-m4t-large-v2",
-                 "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(get_config(arch))
+    """No family is refused any more: every one of the 10 arch ids builds a
+    ``Model`` from its full config, and its smoke config's parameters
+    convert from the reference's into the reference's tree."""
+    from repro.configs import ARCH_IDS as REF_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS, get_config
+    assert ARCH_IDS == REF_ARCH_IDS and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        assert Model(get_config(arch)).cfg.name == arch
+        rcfg, cfg = ref_get_smoke(arch), get_smoke_config(arch)
+        tree = jax.tree_util.tree_map(
+            np.asarray, RefModel(rcfg).init_params(jax.random.key(0), dtype=jnp.float32))
+        params = params_from_numpy(cfg, tree, device="cpu")
+        rleaves, rdef = jax.tree_util.tree_flatten(tree)
+        pleaves, pdef = jax.tree_util.tree_flatten(params)
+        assert rdef == pdef, arch
+        assert all(np.array_equal(p.numpy(), r) for p, r in zip(pleaves, rleaves)), arch
 
 
 def test_entry_points_default_to_cuda(pair):
