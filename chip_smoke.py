@@ -17,7 +17,10 @@ order; any failure exits non-zero:
    at the main paths' full-width shapes, in bfloat16 and float32, with the
    edge cases (a ragged prefill tile, T > S prefill, a zero-length decode
    row, decode lengths on a key-split boundary, one past it and past T, and
-   splits past every length, vocab ties; attention also at zamba2-2.7b's
+   splits past every length, vocab ties; the exit head also over rows 1-65,
+   vocabularies that are not a multiple of its 128-row tile, all logits
+   negative and a tie across a chunk boundary, its ticket counters read
+   back as 0 after phase 3 and after phase 16; attention also at zamba2-2.7b's
    head dim 80, its decode through views of the shared-attention cache;
    for the SSM scan both modes, rwkv6-3b's prefill and decode shapes from a
    non-zero state, zamba2-2.7b's Mamba-2 shapes read through stride-0
@@ -25,7 +28,8 @@ order; any failure exits non-zero:
    everywhere); then each kernel timed with CUDA
    events beside its plain version, one library call for the same function
    where there is one, and its bound on the card (attention also at the
-   short serving shapes, S 12 and T 29, and at head dim 80);
+   short serving shapes, S 12 and T 29, and at head dim 80; the exit head
+   also over the rows sweep and at zamba2-2.7b's 4 x 2560 x 32000);
 4. serve llama3.2-1b: full width in bfloat16 through ``ServingEngine.serve``
    (Edgent plan, prefill, right-sized decode, exit-head token) with every
    launch counter at zero before and its kernels' above zero after, each
@@ -414,28 +418,65 @@ def decode_check(torch, timer, draw, dt, B, Tc, h, kv, d, lens, n_units=2, timed
     return t
 
 
-def exit_head_check(torch, timer, draw, dt, rows, d, vv, timed=False):
+def exit_head_composite(h2, emb):
+    """The exit head's library yardstick, never called by the port: the
+    logits by one product (cuBLAS), then argmax, logsumexp and the entropy
+    as PyTorch reductions."""
+    import torch
+    logits = (h2 @ emb.T).float()
+    lse = torch.logsumexp(logits, -1)
+    p = torch.softmax(logits, -1)
+    return logits.argmax(-1), torch.exp(logits.max(-1).values - lse), \
+        lse - (p * logits).sum(-1)
+
+
+def exit_head_check(torch, timer, draw, dt, rows, d, vv, timed=False, negative=False,
+                    boundary_tie=False):
     """The exit head over h [1, rows, d] (drawn first) against an embedding
     [vv, d] (drawn second) with exact ties across chunks and warps (row 0's
     maximum is a 3-way tie, which the first index must win), against its
     plain version on the same values widened to float32: tokens equal
     unless the plain top-2 margin is below MARGIN_TOL, conf within
-    CONF_TOL, entropy within ENT_RTOL.  With ``timed`` (bf16 only) its
-    times beside the plain version, the library composite and its bound."""
+    CONF_TOL, entropy within ENT_RTOL.  With ``negative`` every logit is
+    negative (h >= 0, emb <= 0) and no tie is built: a zero-filled row past
+    V would score 0 and win.  With ``boundary_tie`` the last row's maximum
+    is a tie between the last vocab row of a chunk of the kernel's plan on
+    this card and the first row of the next chunk, which the first must
+    win (with one row, in place of row 0's tie).  With ``timed`` (bf16
+    only) its times beside the plain version, the library composite and
+    its bound."""
     import repro_torch.config as C
     from repro_torch.kernels.exit_head import ops as eh_ops
     from repro_torch.kernels.exit_head import ref as eh_ref
     h = draw(1, rows, d, dtype=dt)
     emb = draw(vv, d, dtype=dt, scale=1.0 / math.sqrt(d))
-    emb[6] = emb[5]                      # same chunk, neighbouring warps
-    emb[vv - 100] = emb[5]               # a chunk near the end
-    h[0, 0] = emb[5].float().mul(40.0).to(dt)   # row 0's maximum: a 3-way tie
+    if negative:
+        h, emb = h.abs(), -emb.abs()
+    else:
+        emb[6] = emb[5]                      # same chunk, neighbouring warps
+        emb[vv - 100] = emb[5]               # a chunk near the end
+        h[0, 0] = emb[5].float().mul(40.0).to(dt)   # row 0's maximum: a 3-way tie
+    tie = ""
+    if boundary_tie:
+        _, n_chunks = eh_ops.exit_head_plan(vv, eh_ops._sms(h.device))
+        edge = eh_ops.chunk_tiles(n_chunks // 2, vv, n_chunks)[0] * eh_ops.TILE
+        emb[edge] = emb[edge - 1]
+        h[0, rows - 1] = emb[edge - 1].float().mul(40.0).to(dt)
+        tie = (f", chunk-boundary tie {edge - 1}|{edge} of {n_chunks} chunks on row "
+               f"{rows - 1}")
     got = eh_ops.exit_confidence(h, emb)
     torch.cuda.synchronize()
     hf, ef = h.float(), emb.float()
     plain = eh_ref.exit_confidence(hf, ef)
-    require(got["token"][0, 0].item() == 5,
-            f"exit head V{vv}: tie went to {got['token'][0, 0].item()}, not 5")
+    require(((got["token"] >= 0) & (got["token"] < vv)).all().item(),
+            f"exit head V{vv}: a token outside the vocab")
+    if not negative and not (boundary_tie and rows == 1):
+        require(got["token"][0, 0].item() == 5,
+                f"exit head V{vv}: tie went to {got['token'][0, 0].item()}, not 5")
+    if boundary_tie:
+        require(got["token"][0, rows - 1].item() == edge - 1,
+                f"exit head V{vv}: the chunk-boundary tie went to "
+                f"{got['token'][0, rows - 1].item()}, not {edge - 1}")
     diff = (got["token"] != plain["token"]).nonzero().tolist()
     if diff:
         top2 = torch.einsum("bsd,vd->bsv", hf, ef).topk(2, dim=-1).values
@@ -448,24 +489,17 @@ def exit_head_check(torch, timer, draw, dt, rows, d, vv, timed=False):
     ec = (got["conf"] - plain["conf"]).abs().max().item()
     ee = ((got["entropy"] - plain["entropy"]).abs()
           / plain["entropy"].abs().clamp_min(1.0)).max().item()
-    log(f"check exit_confidence {dt} rows{rows} D{d} V{vv}: tokens equal "
+    log(f"check exit_confidence {dt} rows{rows} D{d} V{vv}"
+        f"{' all logits negative' if negative else ''}{tie}: tokens equal "
         f"{not diff}, conf err {ec:.3g} (tol {CONF_TOL}), entropy rel err "
         f"{ee:.3g} (tol {ENT_RTOL})")
     require(ec <= CONF_TOL and ee <= ENT_RTOL, f"exit head {dt} D{d} V{vv} disagrees")
     if not (timed and dt == torch.bfloat16):
         return None
     h2 = h.reshape(rows, d)
-
-    def library():
-        logits = (h2 @ emb.T).float()
-        lse = torch.logsumexp(logits, -1)
-        p = torch.softmax(logits, -1)
-        return logits.argmax(-1), torch.exp(logits.max(-1).values - lse), \
-            lse - (p * logits).sum(-1)
-
     t = dict(**timer.kernel(lambda: eh_ops.exit_confidence(h, emb)),
              plain_ms=timer.ms(lambda: eh_ref.exit_confidence(h, emb)),
-             library_ms=timer.ms(library))
+             library_ms=timer.ms(lambda: exit_head_composite(h2, emb)))
     nbytes = (h.numel() + emb.numel()) * h.element_size() + 12 * rows
     t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * rows * vv * d, dt, C)
     t.update(max_abs_err=max(ec, (got["entropy"] - plain["entropy"]).abs().max().item()),
@@ -582,7 +616,63 @@ def kernel_checks(torch, timer):
             if t is not None:
                 record["exit_confidence"] = t
     record["ssm_scan"] = scan_checks(torch, timer, randn)
+    record["exit_confidence"]["at_shapes"] = exit_head_cases(torch, timer)
     return record
+
+
+# phase 3's rows sweep of the exit head at llama3.2-1b's D and V: one m64n16
+# group (1-16), one m64n64 group (17-64), two groups (65)
+EXIT_ROWS = (1, 2, 4, 7, 8, 16, 17, 64, 65)
+GRANITE_VOCAB = 49155         # granite-3-2b's vocab_size: 384 tiles of 128 and 3 rows
+
+
+def exit_tickets_zero(torch):
+    """Every exit-head ticket counter reads back as 0: a call that faulted
+    would leave one set, and every later call would then merge early."""
+    from repro_torch.kernels.exit_head import ops as eh_ops
+    torch.cuda.synchronize()
+    left = {str(k): int(t.count_nonzero()) for k, t in eh_ops._TICKETS.items()}
+    log(f"exit head ticket buffers (device, stream) -> counters not zero: {left}")
+    require(left and not any(left.values()), f"exit head tickets not zero: {left}")
+
+
+def exit_head_cases(torch, timer):
+    """The exit head's cases of its Hopper redesign, from a generator of its
+    own (seed 20), so that the inputs of the checks before and after stay
+    those of earlier runs, in both dtypes: the rows sweep at llama3.2-1b's
+    D 2048 V 128256, vocabularies that are not a multiple of the 128-row
+    tile (32001, granite's 49155), every logit negative over a ragged tail,
+    and a tie across a chunk boundary of the plan.  Then zamba2-2.7b's
+    shape (4 x 2560 x 32000).  Timed (bf16): the sweep and zamba2's shape.
+    Ends with every ticket counter read back as 0.  Returns {label: times}."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    cfg, zc = get_config(LLAMA), get_config(ZAMBA)
+    D, V = cfg.d_model, cfg.padded_vocab
+    times = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for rows in EXIT_ROWS:
+            t = exit_head_check(torch, timer, randn, dt, rows, D, V, timed=True)
+            if t is not None:
+                times[f"rows {rows}"] = t
+        for vv in (32001, GRANITE_VOCAB):
+            exit_head_check(torch, timer, randn, dt, BATCH, D, vv)
+        exit_head_check(torch, timer, randn, dt, BATCH, D, GRANITE_VOCAB, negative=True)
+        exit_head_check(torch, timer, randn, dt, BATCH, D, V, boundary_tie=True)
+        exit_head_check(torch, timer, randn, dt, 1, D, V, boundary_tie=True)
+        t = exit_head_check(torch, timer, randn, dt, BATCH, zc.d_model, zc.padded_vocab,
+                            timed=True)
+        if t is not None:
+            times[ZAMBA] = t
+    sweep = {k: t["ms"] for k, t in times.items() if k.startswith("rows")}
+    log(f"time exit_confidence rows sweep at D{D} V{V} (ms): {sweep}")
+    exit_tickets_zero(torch)
+    return times
 
 
 def scan_checks(torch, timer, randn):
@@ -2722,9 +2812,10 @@ def main() -> int:
     at_families = family_kernel_times(torch)
 
     # -- 4-9 the main paths, each with its kernel path against its plain path
-    launches, at_arena = {}, {}
+    launches, at_arena, served = {}, {}, {}
     for arch in (LLAMA, RWKV, ZAMBA):
         params, counts = serve_main_path(torch, arch)
+        served[arch] = counts
         kernel_vs_plain(torch, params, arch)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
@@ -2791,6 +2882,9 @@ def main() -> int:
     log(f"chip_smoke: phase 14 took {t15 - t14:.1f} s, phase 15 {t_end - t15:.1f} s "
         f"and its profile {time.perf_counter() - t_prof:.1f} s")
     log(f"launches over the served paths: {launches}")
+    exit_tickets_zero(torch)
+    record["exit_confidence"]["at_shapes"][ZAMBA]["launches"] = \
+        served[ZAMBA]["exit_confidence"]
 
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2813,6 +2907,7 @@ def main() -> int:
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "shape": t["shape"], "dtype": t["dtype"],
                         **({"at_arena": at_arena[name]} if name in at_arena else {}),
+                        **({"at_shapes": t["at_shapes"]} if "at_shapes" in t else {}),
                         **({"at_families": at_families[name]} if at_families.get(name)
                            else {})})
     log(f"chip_smoke: phases 1-16 took {time.perf_counter() - t_start:.1f} s")

@@ -7,8 +7,8 @@ root (``.gitignore`` lists it).  The library is loaded with :mod:`ctypes`;
 the file name carries a digest of the sources and flags, so an edited source
 is rebuilt and a stale library is never loaded.  The link names the CUDA
 runtime alone: the one driver-API function the kernels use,
-``cuTensorMapEncodeTiled`` (the TMA tensor maps of the bf16 flash and
-chunked scan kernels), is looked up at run time with
+``cuTensorMapEncodeTiled`` (the TMA tensor maps of the bf16 flash, exit
+head and chunked scan kernels), is looked up at run time with
 ``cudaGetDriverEntryPoint``, and its absence is an error the wrapper raises.
 
 Nothing here runs at import: the CPU tests import every module of the port,
@@ -47,7 +47,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "decode_attention_fwd": [_P] * 7 + [_I] * 6 + [_LL] * 6 + [_I, _P],
-    "exit_head_fwd": [_P, _P] + [_I] * 4 + [_P] * 7 + [_I, _P],
+    "exit_head_fwd": [_P, _P] + [_I] * 4 + [_P] * 5 + [_I, _P],
     "ssm_scan_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 16 + [_I, _P],
     "ssm_scan_chunked_fwd": [_P] * 8 + [_I] * 5 + [_LL] * 16 + [_I, _P],
 }

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssm_scan.cu): mbarriers, TMA loads, wgmma shared-
+// (flash_attention.cu, ssm_scan.cu, exit_head.cu): mbarriers, TMA loads, wgmma shared-
 // memory descriptors and wgmma instructions as inline PTX, and the
 // tensor-map encoder reached through the runtime.  All of it needs sm_90a.
 #pragma once
@@ -48,6 +48,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       else if (t - t0 > 2000000000ull) __trap();
     }
   }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -262,6 +271,21 @@ inline bool encode_4d(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType dtyp
                       CUtensorMapSwizzle swizzle) {
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 2-D tiled map over a row-major [outer, inner] matrix with rows
+// `row_bytes` apart, boxes of box_outer rows of box_inner elements; zero
+// fill out of bounds
+inline bool encode_2d(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType dtype,
+                      const void* ptr, cuuint64_t inner, cuuint64_t outer, cuuint64_t row_bytes,
+                      cuuint32_t box_inner, cuuint32_t box_outer, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

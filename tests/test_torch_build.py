@@ -75,3 +75,49 @@ def test_build_key_follows_sources_and_flags(monkeypatch):
         "ssm_scan.cu"]
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     assert build._digest() != key
+
+
+class _FakeLibrary:
+    """Records the arguments of ``exit_head_fwd`` instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def exit_head_fwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("B,S,V", [(4, 1, 128256), (2, 1, 32000), (1, 65, 49155), (1, 1, 17)])
+def test_exit_head_launch_follows_the_plan(monkeypatch, B, S, V):
+    """The wrapper's one launch, off the card: the C prototype's argument
+    count, the plan's chunk count for the device's SMs, the scratch and
+    ticket sizes, the outputs as [B, S] views, one launch counted."""
+    D = 64
+    lib = _FakeLibrary()
+    monkeypatch.setattr(build, "require_cuda", lambda *ts: None)
+    monkeypatch.setattr(build, "stream", lambda t: 7)
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(eh_ops, "_SMS", {None: 132})
+    monkeypatch.setattr(eh_ops, "_TICKETS", {})
+    monkeypatch.setitem(eh_ops.LAUNCHES, "exit_confidence", 0)
+    h = torch.empty((B, S, D), dtype=torch.bfloat16, device="meta")
+    emb = torch.empty((V, D), dtype=torch.bfloat16, device="meta")
+    out = eh_ops.exit_confidence(h, emb)
+    (args,) = lib.calls
+    assert len(args) == len(build._SIGNATURES["exit_head_fwd"])
+    rows, n_chunks = B * S, eh_ops.exit_head_plan(V, 132)[1]
+    assert args[2:6] == (rows, D, V, n_chunks) and args[-2:] == (1, 7)
+    (tickets,) = eh_ops._TICKETS.values()
+    assert tickets.numel() >= -(-rows // 4) and tickets.dtype == torch.int32
+    assert args[9] - args[6] == 4 * (4 * rows * n_chunks + rows)   # partials, then tok, conf
+    assert out["token"].shape == out["conf"].shape == out["entropy"].shape == (B, S)
+    assert out["token"].dtype == torch.int32 and out["conf"].dtype == torch.float32
+    assert eh_ops.LAUNCHES["exit_confidence"] == 1
+
+
+def test_exit_head_refuses_rows_tma_cannot_stride(monkeypatch):
+    monkeypatch.setattr(build, "require_cuda", lambda *ts: None)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        eh_ops.exit_confidence(torch.empty((1, 1, 60), device="meta"),
+                               torch.empty((100, 60), device="meta"))
