@@ -29,7 +29,13 @@ order; any failure exits non-zero:
    events beside its plain version, one library call for the same function
    where there is one, and its bound on the card (attention also at the
    short serving shapes, S 12 and T 29, and at head dim 80; the exit head
-   also over the rows sweep and at zamba2-2.7b's 4 x 2560 x 32000);
+   also over the rows sweep and at zamba2-2.7b's 4 x 2560 x 32000); then
+   flash and decode attention at head dims 16 and 32 (the smoke configs'
+   and the reference's kernel tests'), at the smoke stacks' G 2 and G 1, in
+   both dtypes (the arena spec's 6-token prefill, a ragged tile, T > S
+   causal and not, the serial cache, the arena's B 8 T 32 with a
+   zero-length row, lengths on a split boundary, one past it, past T and
+   zero), and the exit head at D 64 V 256, the served shapes timed;
 4. serve llama3.2-1b: full width in bfloat16 through ``ServingEngine.serve``
    (Edgent plan, prefill, right-sized decode, exit-head token) with every
    launch counter at zero before and its kernels' above zero after, each
@@ -95,9 +101,12 @@ order; any failure exits non-zero:
    sum checked exactly;
 13. the calibration loop on the card: ``measure_alexnet`` -> ``fit_table``
    (R^2 per kind) -> a planner on the raw fitted models, its plans beside
-   phase 12's, and the table saved and loaded back equal.  These two
-   phases launch none of the port's kernels: BranchyAlexNet's layers are
-   cuDNN convolutions and cuBLAS products, as the reference's are XLA ops;
+   phase 12's, and the table saved and loaded back equal; BranchyAlexNet's
+   layers are cuDNN convolutions and cuBLAS products, as the reference's
+   are XLA ops.  Then its LM half: ``measure_lm`` on llama3.2-1b's smoke
+   stack (the one the reference measures and fits), its prefill and
+   decode through flash and decode attention at head dim 16, and
+   ``fit_table`` on the table;
 14. training BranchyAlexNet, ``examples/train_branchy_alexnet.py``'s path:
    five of the example's steps (BranchyNet joint loss, AdamW) card against
    CPU with every dropout rate 0, each from the CPU's state, with
@@ -139,7 +148,27 @@ order; any failure exits non-zero:
    any, the paths part by design and scout is held launch by launch),
    padded heads exactly 0, the int8 decode within rel 0.05 of the
    unquantized cache's and its bytes under 0.6 of the bf16 cache's, and
-   the gather dispatch against the einsum dispatch.
+   the gather dispatch against the einsum dispatch;
+17. the simulator on the card, as a user drives it (after phase 16, before
+   the profiler sessions): ``Simulation(spec).run()`` with real decode on
+   the arena suite's static spec at the smoke size (4 heads of 16) in
+   float32, serial, batched and arena, flash and decode launches counted
+   and each run held against the port's own CPU run on the same
+   parameters (tokens equal unless the CPU's top-2 margin is below
+   MARGIN_TOL, summaries equal); ``run_sweep`` over planner.arch
+   (llama3.2-1b, zamba2-2.7b, whose cells run the stepped Mamba-2 scan and
+   G 1 decode) x engine.arena_decode over a spawn pool of two workers
+   against inline, rows equal except ``wall_s``; ``python -m
+   repro_torch.sim --scenario smoke-lm --set engine.real_decode=true
+   --json`` as two subprocesses, with and without ``--trace``/``--timeline``,
+   running beside the rest of the phase: metrics bit-identical and
+   ``python -m repro_torch.obs validate`` passing;
+   smoke-mobility in 8 geography tiles, timing-only, 4 processes against 1,
+   bit-identical.  Its full-width part runs inside phase 10: the float32
+   llama3.2-1b arena fleet again with a ``Tracer``, a ``Timeline`` and a
+   ``SimProfiler`` attached, summary, handover log and tokens bit-identical
+   to the unobserved run, the trace valid, the profiler's wall per event
+   kind logged.
 
 The line before the last is the JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
@@ -675,6 +704,74 @@ def exit_head_cases(torch, timer):
     return times
 
 
+# phase 3 at the smoke stacks' shapes, which the simulator builds (phase 17):
+# 4 heads of 16 over 2 kv heads (llama3.2-1b's smoke config, G 2) or 4
+# (zamba2-2.7b's, G 1), D 64, V 256; the arena suite's static spec has
+# prompts of SIM_PROMPT tokens and budgets of 6 and 10 new tokens, so a serial
+# cache holds SIM_PROMPT + 10 + 1 keys and the arena 8 slots of 32
+SIM_PROMPT, SIM_SERIAL_T, SIM_SLOTS, SIM_ARENA_T = 6, 17, 8, 32
+SIM_HEAD_DIMS = (16, 32)
+
+
+def smoke_kernel_cases(torch, timer):
+    """Flash and decode attention at head dims 16 and 32 (the smoke
+    configs' and the reference's kernel tests'), in both dtypes, at the
+    smoke stacks' G 2 and G 1: the arena spec's 6-token prefill, a ragged
+    q-tile, T > S (causal and not), the serial cache, the arena's B 8 T 32
+    with a zero-length row, and lengths on a split boundary, one past it,
+    past T and zero.  Then the exit head at D 64 V 256.  Each against its
+    plain version at the stated tolerances; the served shapes timed (bf16)
+    beside the plain version, SDPA or the library composite and the bound.
+    From a generator of its own (seed 17), so that the inputs of the other
+    checks stay those of earlier runs.  Returns ``{kernel: {label: times}}``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    out = {"flash_attention": {}, "decode_attention": {}, "exit_confidence": {}}
+
+    def keep(kernel, label, t):
+        if t is not None:
+            out[kernel][label] = t
+
+    SK = fa_ops.SPLIT_KEYS
+    lens_arena = [SIM_PROMPT + 1, 0, SIM_PROMPT + 10, SIM_ARENA_T, 1, SIM_PROMPT + 6,
+                  SIM_ARENA_T - 1, SIM_PROMPT + 3]
+    for dt in (torch.bfloat16, torch.float32):
+        for d in SIM_HEAD_DIMS:
+            for kv in (2, 4):
+                g = f"G{4 // kv}"
+                keep("flash_attention", f"hd{d} {g} sim prefill",
+                     flash_check(torch, timer, randn, dt, 1, SIM_PROMPT, SIM_PROMPT, 4,
+                                 kv, d, timed=True))
+                keep("decode_attention", f"hd{d} {g} serial",
+                     decode_check(torch, timer, randn, dt, 1, SIM_SERIAL_T, 4, kv, d,
+                                  [SIM_PROMPT + 4], timed=True))
+                keep("decode_attention", f"hd{d} {g} arena",
+                     decode_check(torch, timer, randn, dt, SIM_SLOTS, SIM_ARENA_T, 4, kv,
+                                  d, lens_arena, timed=True))
+                for case in ((2, 77, 77, 4, kv, d, True),
+                             (2, 100, 300, 4, kv, d, True),
+                             (2, 100, 300, 4, kv, d, False),
+                             (3, 300, 77, 4, kv, d, False)):
+                    flash_check(torch, timer, randn, dt, *case[:6], causal=case[6])
+                for lens in ([SK, 2 * SK, SK + 1, 0], [2 * SK + 1, 200 + 7, 5, 200]):
+                    decode_check(torch, timer, randn, dt, 4, 200, 4, kv, d, lens, n_units=3)
+        for rows in (1, SIM_SLOTS):
+            keep("exit_confidence", f"rows{rows} D64 V256",
+                 exit_head_check(torch, timer, randn, dt, rows, 64, 256, timed=True))
+    for kernel, times in out.items():
+        for label, t in times.items():
+            log(f"time {kernel} {label} (smoke shapes): kernel {t['ms']} ms "
+                f"({t['ms_unspun']} ms unspun, {t['host_us']} us on the host), plain "
+                f"{t['plain_ms']} ms, library {t['library_ms']} ms, bound "
+                f"{t['bound_ms']} ms ({t['bound_by']})")
+    return out
+
+
 def scan_checks(torch, timer, randn):
     """The SSM scan kernels against their plain version, in both modes, at
     rwkv6-3b's prefill (S 12, and S 1000, ragged against any power-of-two
@@ -1139,10 +1236,11 @@ def fleet_spec(arch):
         router=RouterSpec(name="bandwidth-aware"))
 
 
-def fleet_engine(arch, model, params, dtype, strategy):
+def fleet_engine(arch, model, params, dtype, strategy, **observers):
     """The spec's fleet, planned as ``repro_torch.sim.build_stack`` plans
     (the full config's graph), on ``model``: a ``FleetEngine`` and its
-    workload (prompts over the full vocab)."""
+    workload (prompts over the full vocab).  ``observers`` (``tracer``,
+    ``timeline``, ``profiler``) go to the engine."""
     from repro_torch.fleet import FleetEngine
     from repro_torch.sim.build import build_planner, build_topology, build_workload
 
@@ -1154,7 +1252,7 @@ def fleet_engine(arch, model, params, dtype, strategy):
     engine = FleetEngine(topo, graph, planner, router=spec.router.name, model=model,
                          params=params, dtype=dtype,
                          batch_decode=strategy == "batched",
-                         arena_decode=strategy == "arena")
+                         arena_decode=strategy == "arena", **observers)
     return engine, workload
 
 
@@ -1378,9 +1476,61 @@ def fleet_phase(torch, arch):
     require(held["calls"] == ar["calls"] and held["rows"] > 0,
             f"fleet {arch}: {held['calls']} of {ar['calls']} arena calls held")
     log(f"fleet {arch}: summary {m_serial.summary()}")
-    del engine, params32
+    del engine
+    if arch == LLAMA:
+        for name, n in observed_fleet(torch, arch, model, params32, m_arena,
+                                      t_arena).items():
+            launches[name] = launches.get(name, 0) + n
+    del params32
     torch.cuda.empty_cache()
     return launches
+
+
+def observed_fleet(torch, arch, model, params, m_want, t_want):
+    """Phase 17 at full width: the float32 arena fleet of phase 10 again,
+    with a ``Tracer``, a ``Timeline`` and a ``SimProfiler`` attached.  Its
+    summary, handover log and tokens must equal the unobserved run's (which
+    the arena's masked-row hold only reads) bit for bit, and its trace must
+    be valid.  The profiler's walls are host walls, taken before any
+    ``torch.profiler`` session.  Returns the run's launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import SimProfiler, Timeline, Tracer, validate_trace
+
+    topo = fleet_spec(arch).topology
+    tracer, profiler = Tracer(), SimProfiler()
+    timeline = Timeline(topo.num_edges, num_devices=topo.num_devices)
+    engine, workload = fleet_engine(arch, model, params, torch.float32, "arena",
+                                    tracer=tracer, timeline=timeline,
+                                    profiler=profiler)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    m = engine.run(workload)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    toks = {r.rid: list(r.tokens) for r in workload}
+    require(json.dumps(m.summary(), sort_keys=True)
+            == json.dumps(m_want.summary(), sort_keys=True),
+            f"phase 17: {arch} observed summary differs from the unobserved run")
+    require(m.handover_log == m_want.handover_log,
+            f"phase 17: {arch} observed handover log differs")
+    require(toks == t_want, f"phase 17: {arch} observed tokens differ")
+    for name in FLEET_KERNELS[arch]:
+        require(counts[name] > 0, f"phase 17: {arch} observed run launched no {name}")
+    doc = tracer.to_chrome()
+    problems = validate_trace(doc)
+    require(not problems, f"phase 17: {arch} trace invalid: {problems[:5]}")
+    rep = profiler.report(engine)
+    by_kind = {k: (b["count"], b["wall_s"]) for k, b in rep["events"].items()}
+    log(f"phase 17: {arch} full width f32 arena fleet observed (tracer, timeline, "
+        f"profiler): summary, handover log ({len(m.handover_log)}) and "
+        f"{sum(len(v) for v in toks.values())} tokens bit-identical to the unobserved "
+        f"run; trace valid, {len(doc['traceEvents'])} events; timeline "
+        f"{timeline.num_retained} samples; launches {counts}; run wall {wall:.4f} s, "
+        f"profiler wall {rep['wall_s']} s, peak heap {rep['peak_heap']}; per event "
+        f"kind (count, wall s): {by_kind}")
+    return counts
 
 
 def arena_steps(torch, arch):
@@ -1792,6 +1942,37 @@ def calib_phase(torch, graph, static_plans):
     back = CalibrationTable.load(str(path))
     require(back.to_dict() == table.to_dict(), "calibration table: save/load changed it")
     log(f"phase 13: table saved to {path.relative_to(ROOT)} and loaded back equal")
+    return calib_lm(torch)
+
+
+def calib_lm(torch):
+    """Phase 13's LM half: ``measure_lm`` on the smoke stack the reference
+    measures and fits (``src/repro/calib/fit.py`` ``_lm_graph_for``), its
+    prefill and decode through flash and decode attention at head dim 16
+    on the card, then ``fit_table`` and the fitted branches' predictions
+    beside the measured decode times.  Returns the launch counts."""
+    from repro_torch.calib import fit_table, measure_lm
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    table = measure_lm(arch=LLAMA, device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(table.meta["platform"] == "cuda", f"measure_lm on {table.meta['platform']}")
+    for name in ("flash_attention", "decode_attention"):
+        require(counts[name] > 0, f"phase 13: measure_lm launched no {name}")
+    fitted = fit_table(table)
+    require(all(math.isfinite(v) for th in fitted.theta.values() for v in th),
+            f"phase 13: LM fit not finite: {fitted.theta}")
+    decode = {(s.exit_point, s.batch): s.latency_s * 1e3 for s in table.by_phase("decode")}
+    log(f"phase 13: measure_lm {LLAMA} smoke stack on {table.meta['device_name']} "
+        f"({time.perf_counter() - t0:.1f} s): {len(table.samples)} samples (prefill, "
+        f"decode by exit x batch, head), launches {counts}; decode ms by (exit, batch) "
+        f"{ {k: round(v, 4) for k, v in sorted(decode.items())} }; fit_table kinds "
+        f"{sorted(fitted.theta)} R^2 { {k: round(v, 4) for k, v in fitted.r2.items()} }")
+    return counts
 
 
 # ---------------------------------------------------------------- phases 14-15
@@ -2767,6 +2948,257 @@ def family_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+# The simulator on the card, as a user drives it: ``Simulation`` with real
+# decode at the smoke size the reference's sim defines (every smoke config
+# has 4 heads of 16), a sweep over a spawn pool, the command line and the
+# observers, and a sharded timing-only run.  The real-decode spec is the
+# arena suite's static scenario (tests/test_arena.py::_static_spec): seed 3,
+# 8 devices, 2 edges of 8 slots, 6-token prompts, 53 requests.
+SIM_STRATEGIES = {"serial": (False, False), "batched": (True, False),
+                  "arena": (True, True)}           # (batch_decode, arena_decode)
+# smoke-mobility reshaped as tests/test_shard.py's scale smoke: 400 devices
+# over 8 edges in 8 geography tiles, a 15 s horizon
+SHARD_TILES, SHARD_DEVICES, SHARD_EDGES, SHARD_HORIZON = 8, 400, 8, 15.0
+
+
+def sim_spec(strategy="arena", arch=LLAMA):
+    from repro_torch.fleet.workload import TenantClass
+    from repro_torch.sim import (EngineSpec, PlannerSpec, RouterSpec, ScenarioSpec,
+                                 TopologySpec, WorkloadSpec)
+    batch, arena = SIM_STRATEGIES[strategy]
+    tenants = (TenantClass("interactive", slo_s=1.0, max_new_tokens=6, weight=0.5),
+               TenantClass("standard", slo_s=2.0, max_new_tokens=10, weight=0.5))
+    return ScenarioSpec(
+        name="arena-static", seed=3, planner=PlannerSpec(arch=arch),
+        topology=TopologySpec(num_devices=8, num_edges=2, trace="lte",
+                              edge_capacity=SIM_SLOTS, max_edge_slowdown=2.0),
+        workload=WorkloadSpec(rate_hz=10.0, horizon_s=4.0, device_skew=0.5,
+                              prompt_len=SIM_PROMPT, tenants=tenants),
+        router=RouterSpec(name="bandwidth-aware"),
+        engine=EngineSpec(real_decode=True, batch_decode=batch, arena_decode=arena))
+
+
+@contextlib.contextmanager
+def one_cpu_thread(torch):
+    """One intra-op thread for the smoke model's CPU runs: its products are
+    a few KB, and more threads only wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def sim_real_decode(torch):
+    """``Simulation(spec).run()`` with real decode on the card in float32,
+    serial, batched and arena, each held against the port's own CPU run of
+    the same spec on the same parameters (the card's, copied): token
+    streams equal except from a step whose CPU serial top-2 margin is below
+    MARGIN_TOL (every flip logged with its margin), summaries equal when no
+    stream flips.  Returns the launches of the card runs."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sim import Simulation
+    from repro_torch.tree import tree_map
+
+    launches, margins = {}, None
+    for strategy in SIM_STRATEGIES:
+        spec = sim_spec(strategy)
+        sim = Simulation(spec)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m_card = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        require(sim.scenario.cfg.hd == 16, f"phase 17: smoke head dim {sim.scenario.cfg.hd}")
+        for name in ("flash_attention", "decode_attention"):
+            require(counts[name] > 0, f"phase 17: {strategy} real decode launched no {name}")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        t_card = {r.rid: list(r.tokens) for r in sim.scenario.workload}
+        cpu = Simulation(spec, device="cpu")
+        sc = cpu.build()
+        sc.params = sc.engine.params = tree_map(lambda t: t.detach().cpu(),
+                                                sim.scenario.params)
+        if strategy == "serial":
+            margins = record_margins(sc.engine)
+        with one_cpu_thread(torch):
+            m_cpu = sc.engine.run(sc.workload)
+        t_cpu = {r.rid: list(r.tokens) for r in sc.workload}
+        equal, total, parted = streams_held(f"phase 17 {strategy}", t_cpu, t_card, margins)
+        if not parted:
+            require(json.dumps(m_card.summary(), sort_keys=True)
+                    == json.dumps(m_cpu.summary(), sort_keys=True),
+                    f"phase 17: {strategy} summary on the card differs from the CPU's")
+        st = sim.scenario.engine.stepper.cache_stats()
+        log(f"phase 17: Simulation real decode {strategy} f32 on the card (hd 16, G 2): "
+            f"{len(t_card)} requests, {equal} of {total} tokens equal to the CPU run, "
+            f"flips (request: step, CPU margin) {parted}, summaries equal "
+            f"{m_card.summary() == m_cpu.summary()}; launches {counts}; wall {wall:.4f} s; "
+            f"decode {st['decode']} arena {st['arena']}")
+    return launches
+
+
+def sim_sweep(torch):
+    """``run_sweep`` over planner.arch x engine.arena_decode on the card,
+    inline (one arch at a time, its launches counted) and over a spawn pool
+    of two workers, each with its own CUDA context: rows equal except
+    ``wall_s``.  Returns {arch: launches}."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sim import grid_cells, run_sweep
+
+    cells, inline, by_arch = [], [], {}
+    for arch in (LLAMA, ZAMBA):
+        arch_cells = grid_cells(sim_spec("batched", arch),
+                                {"engine.arena_decode": [False, True]})
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        inline += run_sweep(arch_cells)
+        torch.cuda.synchronize()
+        by_arch[arch] = launch_counts()
+        cells += arch_cells
+    t0 = time.perf_counter()
+    pooled = run_sweep(cells, processes=2)
+    t_pool = time.perf_counter() - t0
+
+    def strip(rows):
+        return json.loads(json.dumps([{k: v for k, v in r.items() if k != "wall_s"}
+                                      for r in rows], default=float))
+    require(strip(inline) == strip(pooled), "phase 17: the spawn-pool sweep's rows "
+            "differ from the inline sweep's")
+    for name in ("flash_attention", "decode_attention"):
+        require(all(c[name] > 0 for c in by_arch.values()),
+                f"phase 17: a sweep arch launched no {name}: {by_arch}")
+    require(by_arch[ZAMBA]["ssm_scan.stepped"] > 0, "phase 17: zamba2's sweep cells "
+            f"ran no stepped scan: {by_arch[ZAMBA]}")
+    for row in inline:
+        log(f"phase 17: sweep cell {row['spec']['planner']['arch']} arena "
+            f"{row['spec']['engine']['arena_decode']}: requests "
+            f"{row['metrics']['requests']}, decode {row['decode']}, wall {row['wall_s']} s")
+    log(f"phase 17: sweep of {len(cells)} cells: processes=2 (spawn, two CUDA contexts, "
+        f"{t_pool:.1f} s) rows equal to inline except wall_s; launches inline by arch "
+        f"{by_arch}")
+    return by_arch
+
+
+def sim_cli_start():
+    """Start ``python -m repro_torch.sim --scenario smoke-lm --set
+    engine.real_decode=true --json`` with real decode on the card, twice
+    at once: with ``--trace``/``--timeline`` and without.  They run beside
+    the rest of phase 17 (each is host-bound, ~40 s); their output goes to
+    files under ``build/phase17``."""
+    import os
+    out = ROOT / "build" / "phase17"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    base = [sys.executable, "-m", "repro_torch.sim", "--scenario", "smoke-lm",
+            "--set", "engine.real_decode=true", "--json"]
+    cli = {"out": out, "env": env, "t0": time.perf_counter(), "procs": []}
+    for tag, extra in (("observed", ["--trace", str(out / "trace.json"),
+                                     "--timeline", str(out / "timeline.jsonl")]),
+                       ("plain", [])):
+        stdout, stderr = open(out / f"{tag}.out", "w"), open(out / f"{tag}.err", "w")
+        cli["procs"].append((tag, subprocess.Popen(base + extra, stdout=stdout, stderr=stderr,
+                                                   env=env, cwd=str(ROOT)), stdout, stderr))
+    return cli
+
+
+def sim_cli_stop(cli):
+    """Stop whatever ``sim_cli_start`` started and is still running."""
+    for _tag, p, stdout, stderr in cli["procs"]:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        stdout.close()
+        stderr.close()
+
+
+def sim_cli_finish(cli):
+    """Wait for both commands: exit 0, metrics bit-identical with and
+    without the observers, and ``python -m repro_torch.obs validate``
+    passing on the trace; then delete the artifacts."""
+    out = {}
+    for tag, p, _stdout, _stderr in cli["procs"]:
+        rc = p.wait(timeout=300)
+        err = (cli["out"] / f"{tag}.err").read_text()
+        require(rc == 0, f"phase 17: python -m repro_torch.sim ({tag}) exited {rc}: "
+                f"{err[-2000:]}")
+        out[tag] = json.loads((cli["out"] / f"{tag}.out").read_text())
+    wall = time.perf_counter() - cli["t0"]
+    require(out["observed"]["metrics"] == out["plain"]["metrics"], "phase 17: "
+            "--trace/--timeline changed the CLI's metrics")
+    trace = cli["out"] / "trace.json"
+    val = subprocess.run([sys.executable, "-m", "repro_torch.obs", "validate", str(trace)],
+                         capture_output=True, text=True, env=cli["env"], cwd=str(ROOT),
+                         timeout=120)
+    require(val.returncode == 0, f"phase 17: obs validate failed: {val.stderr[-2000:]}")
+    m = out["plain"]
+    log(f"phase 17: python -m repro_torch.sim --scenario smoke-lm real decode on the card "
+        f"(two processes beside the rest of phase 17, {wall:.1f} s from their start): exit 0, "
+        f"metrics bit-identical with and without --trace/--timeline (requests "
+        f"{m['metrics']['requests']}, events {m['events']['processed']}); "
+        f"{val.stdout.strip()}")
+    sim_cli_stop(cli)
+    import shutil
+    shutil.rmtree(cli["out"])
+
+
+def sim_sharded(torch):
+    """smoke-mobility in SHARD_TILES geography tiles, timing-only: a spawn
+    pool of 4 workers against one process, merged summaries and handover
+    logs bit-identical."""
+    import dataclasses
+
+    from repro_torch.sim import get_scenario
+    from repro_torch.sim.shard import run_sharded_info
+
+    base = get_scenario("smoke-mobility")
+    spec = dataclasses.replace(
+        base, topology=dataclasses.replace(base.topology, shards=SHARD_TILES,
+                                           num_devices=SHARD_DEVICES,
+                                           num_edges=SHARD_EDGES),
+        workload=dataclasses.replace(base.workload, horizon_s=SHARD_HORIZON),
+        engine=dataclasses.replace(base.engine, retain_records=False))
+    t0 = time.perf_counter()
+    seq, info = run_sharded_info(spec, processes=1)
+    t1 = time.perf_counter()
+    par, _ = run_sharded_info(spec, processes=4)
+    t2 = time.perf_counter()
+    require(json.dumps(seq.summary(), sort_keys=True) == json.dumps(par.summary(), sort_keys=True),
+            "phase 17: sharded summaries differ between processes=4 and 1")
+    require(seq.handover_log == par.handover_log, "phase 17: sharded handover logs differ")
+    log(f"phase 17: smoke-mobility in {SHARD_TILES} tiles ({SHARD_DEVICES} devices, "
+        f"{SHARD_EDGES} edges, {SHARD_HORIZON} s): {info['requests']} requests, "
+        f"{info['events_processed']} events, handovers {seq.summary().get('handovers')}; "
+        f"processes=4 ({t2 - t1:.1f} s) bit-identical to processes=1 ({t1 - t0:.1f} s)")
+
+
+def sim_phase(torch):
+    """Phase 17 (see the module docstring): returns the launches of its
+    real-decode runs and, by arch, those of its inline sweep."""
+    t0 = time.perf_counter()
+    cli = sim_cli_start()
+    try:
+        launches = sim_real_decode(torch)
+        t1 = time.perf_counter()
+        by_arch = sim_sweep(torch)
+        t2 = time.perf_counter()
+        sim_sharded(torch)
+        t3 = time.perf_counter()
+        sim_cli_finish(cli)
+    finally:
+        sim_cli_stop(cli)
+    t4 = time.perf_counter()
+    log(f"chip_smoke: phase 17 took {t4 - t0:.1f} s (real decode {t1 - t0:.1f}, sweep "
+        f"{t2 - t1:.1f}, sharded {t3 - t2:.1f}, then waiting on the CLI {t4 - t3:.1f}); "
+        f"launches of the real-decode runs {launches}, of the inline sweep by arch "
+        f"{by_arch}")
+    return launches, by_arch
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2807,6 +3239,7 @@ def main() -> int:
     # -- 3 kernel checks and times
     timer = Timer(torch)
     record = kernel_checks(torch, timer)
+    at_sim = smoke_kernel_cases(torch, timer)
     del timer
     torch.cuda.empty_cache()
     at_families = family_kernel_times(torch)
@@ -2841,7 +3274,9 @@ def main() -> int:
     t_edgent = time.perf_counter()
     graph, static_plans = edgent_phase(torch)
     t_calib = time.perf_counter()
-    calib_phase(torch, graph, static_plans)
+    lm_counts = calib_phase(torch, graph, static_plans)
+    for name, n in lm_counts.items():
+        launches[name] = launches.get(name, 0) + n
     log(f"chip_smoke: phase 12 took {t_calib - t_edgent:.1f} s, phase 13 "
         f"{time.perf_counter() - t_calib:.1f} s; host time of one launch "
         f"{launch_us:.2f} us before them, {timer.host_us(lambda: probe.add_(1.0)):.2f} us after")
@@ -2876,6 +3311,24 @@ def main() -> int:
         for label, t in at_families.get(name, {}).items():
             t["launches"] = per_model.get(label.split()[0], 0)
 
+    # -- 17 the simulator on the card: real decode at the smoke size (hd 16),
+    #    a spawn-pool sweep, the command line with the observers, a sharded
+    #    run; before any profiler session
+    sim_launches, by_arch = sim_phase(torch)
+    for counts in (sim_launches, *by_arch.values()):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    for name, rows in at_sim.items():
+        for label, t in rows.items():
+            # the smoke stacks' attention, every shape of a stack together:
+            # llama3.2-1b's G 2 (phase 13's measure_lm, phase 17's
+            # real-decode runs and its sweep cells), zamba2-2.7b's G 1 (its
+            # sweep cells); no served path runs hd 32, nor the exit head at
+            # D 64 (the fleet takes the model-dtype argmax)
+            t["launches"] = (lm_counts[name] + sim_launches[name] + by_arch[LLAMA][name]
+                             if label.startswith("hd16 G2") else
+                             by_arch[ZAMBA][name] if label.startswith("hd16 G1") else 0)
+
     arena_profile(torch, (LLAMA, ZAMBA))
     t_prof = time.perf_counter()
     lm_train_profile(torch, lm_walls)
@@ -2909,8 +3362,9 @@ def main() -> int:
                         **({"at_arena": at_arena[name]} if name in at_arena else {}),
                         **({"at_shapes": t["at_shapes"]} if "at_shapes" in t else {}),
                         **({"at_families": at_families[name]} if at_families.get(name)
-                           else {})})
-    log(f"chip_smoke: phases 1-16 took {time.perf_counter() - t_start:.1f} s")
+                           else {}),
+                        **({"at_sim": at_sim[name]} if at_sim.get(name) else {})})
+    log(f"chip_smoke: phases 1-17 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

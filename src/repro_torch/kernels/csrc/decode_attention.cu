@@ -39,11 +39,14 @@
 //  * The tile's softmax and the merge in f32 for both dtypes, with the
 //    finite -1e30 mask; the tile is read with 16-byte loads, several in
 //    flight per thread.
-//  * Head dims 64, 80 and 128.  Lane l of a head's warp owns the output
-//    columns l, l + 32, ... below HD: ceil(HD / 32) of them, the last one
-//    guarded when 32 does not divide HD (zamba2's 80: columns 64-79 on
-//    lanes 0-15 only).  A key row is HD / N 16-byte loads (10 in bf16, 20
-//    in f32 at hd 80), so HD only has to be a multiple of 8.
+//  * Head dims 16, 32, 64, 80 and 128.  Lane l of a head's warp owns the
+//    output columns l, l + 32, ... below HD: ceil(HD / 32) of them, the
+//    last one guarded when 32 does not divide HD (zamba2's 80: columns
+//    64-79 on lanes 0-15 only; the smoke configs' 16: lanes 16-31 own
+//    none).  A key row is HD / N 16-byte loads (10 in bf16, 20 in f32 at
+//    hd 80; 2 in bf16, 4 in f32 at hd 16), so HD only has to be a multiple
+//    of 8.  Shared memory is sized by HD and G alone (decode_smem_bytes):
+//    ~8.8 KB at hd 16 G 2.
 #include "common.cuh"
 
 namespace {
@@ -264,12 +267,16 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   launch<TYPE, DIM>(q, k, v, lengths, o, pf, tk, B, T, H, KV, n_split, k_sb, k_st, k_sh, \
                     v_sb, v_st, v_sh, st)
   if (dtype == rk::kF32) {
+    if (hd == 16) return RK_DECODE(float, 16);
+    if (hd == 32) return RK_DECODE(float, 32);
     if (hd == 64) return RK_DECODE(float, 64);
     if (hd == 80) return RK_DECODE(float, 80);
     if (hd == 128) return RK_DECODE(float, 128);
     return rk::kBadHeadDim;
   }
   if (dtype == rk::kBF16) {
+    if (hd == 16) return RK_DECODE(__nv_bfloat16, 16);
+    if (hd == 32) return RK_DECODE(__nv_bfloat16, 32);
     if (hd == 64) return RK_DECODE(__nv_bfloat16, 64);
     if (hd == 80) return RK_DECODE(__nv_bfloat16, 80);
     if (hd == 128) return RK_DECODE(__nv_bfloat16, 128);

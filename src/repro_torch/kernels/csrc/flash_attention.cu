@@ -318,6 +318,16 @@ struct Work {
 // K-slices, none over the zero columns; P V runs both 64-column N-halves,
 // the second's columns 16-63 coming out zero and never stored.  Scores are
 // scaled by 1 / sqrt(HD) and rows are HD apart in o.
+//
+// HD 16 and 32 (the smoke configs' 16, the reference kernel tests' 32) take
+// the hd-64 layout the same way: one box whose columns HD-63 TMA fills with
+// zeros (a row of 32 or 64 bytes is narrower than the box, which TMA
+// allows).  Q K^T runs HD / 16 = 1 or 2 K-slices, P V the one 64-column
+// N-half, whose columns HD-63 come out zero and are never stored.  The
+// 32- and 64-byte swizzles would fit the rows exactly, but need descriptors
+// of their own for both operands; these head dims serve only the smoke
+// stacks, where the 4x or 2x of P V over zero columns costs little, so they
+// share the descriptors the other head dims are checked on.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -564,12 +574,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (H % KV != 0 || B <= 0 || S <= 0 || T <= 0) return rk::kBadShape;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rk::kF32) {
+    if (hd == 16) return launch<float, 16>(q, k, v, o, B, S, T, H, KV, causal, st);
+    if (hd == 32) return launch<float, 32>(q, k, v, o, B, S, T, H, KV, causal, st);
     if (hd == 64) return launch<float, 64>(q, k, v, o, B, S, T, H, KV, causal, st);
     if (hd == 80) return launch<float, 80>(q, k, v, o, B, S, T, H, KV, causal, st);
     if (hd == 128) return launch<float, 128>(q, k, v, o, B, S, T, H, KV, causal, st);
     return rk::kBadHeadDim;
   }
   if (dtype == rk::kBF16) {
+    if (hd == 16) return wg::launch<16>(q, k, v, o, B, S, T, H, KV, causal, st);
+    if (hd == 32) return wg::launch<32>(q, k, v, o, B, S, T, H, KV, causal, st);
     if (hd == 64) return wg::launch<64>(q, k, v, o, B, S, T, H, KV, causal, st);
     if (hd == 80) return wg::launch<80>(q, k, v, o, B, S, T, H, KV, causal, st);
     if (hd == 128) return wg::launch<128>(q, k, v, o, B, S, T, H, KV, causal, st);

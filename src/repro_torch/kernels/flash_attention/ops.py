@@ -13,11 +13,13 @@ Neither has a backward: under grad mode both refuse inputs that require
 grad, on the CPU too (:func:`build.refuse_autograd`).
 
 Head dims are :data:`HEAD_DIMS`; both kernels are instantiated for each
-(64 and 128 for the dense models, 80 for zamba2's shared attention), and any
-other head dim raises.  The bf16 prefill reads q, k and v through TMA
-tensor maps, whose strides must be whole 16 bytes: a row of a head is
-``hd * 2`` bytes (160 at hd 80) and the sequence stride ``hd * 2 * H``, which
-:func:`build.require_aligned` checks with the base address.
+(64 and 128 for the dense models, 80 for zamba2's shared attention, 16 for
+the smoke configs the simulator builds and 32 for the reference's own
+kernel tests), and any other head dim raises.  The bf16 prefill reads q, k
+and v through TMA tensor maps, whose strides must be whole 16 bytes: a row
+of a head is ``hd * 2`` bytes (160 at hd 80, 32 at hd 16) and the sequence
+stride ``hd * 2 * H``, which :func:`build.require_aligned` checks with the
+base address.
 
 Decode attention splits the cache's keys across blocks
 (:func:`decode_splits`, from the capacity T alone, never from ``lengths``)
@@ -33,7 +35,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 #: kernel launches since the last reset (see repro_torch.kernels)
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
 #: keys per split of decode attention: one tile (kBK) of decode_attention.cu

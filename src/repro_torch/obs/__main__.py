@@ -1,0 +1,7 @@
+"""Entry point: ``python -m repro_torch.obs report|validate FILE``."""
+import sys
+
+from repro_torch.obs.report import main
+
+if __name__ == "__main__":
+    sys.exit(main())

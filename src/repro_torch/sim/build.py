@@ -18,11 +18,10 @@ Entry points that execute the model run on the card unless the caller asks
 for the CPU: ``Simulation(spec, device="cuda")`` and
 ``build_stack(..., device="cuda")``; a timing-only spec builds no model
 and needs no device.  ``calibration`` swaps the planner's roofline models
-for regressions fitted from a measured table (``repro_torch.calib``).
-Spec options whose machinery the port does not have yet
-(``engine.trace``, ``engine.timeline`` and ``topology.shards > 1``) raise
-:class:`NotImplementedError` naming the ``ROADMAP.md`` step that brings
-them; none is ignored.
+for regressions fitted from a measured table (``repro_torch.calib``);
+``engine.trace`` / ``engine.timeline`` attach the ``repro_torch.obs``
+observers, and ``topology.shards > 1`` runs the geography tiles of
+``repro_torch.sim.shard`` and merges them.
 """
 from __future__ import annotations
 
@@ -43,7 +42,7 @@ from repro_torch.sim.spec import (PlannerSpec, ScenarioSpec, TopologySpec,
                                   WorkloadSpec)
 
 __all__ = ["Scenario", "Simulation", "build_planner", "build_stack",
-           "build_topology", "build_workload"]
+           "build_topology", "build_workload", "engine_dtype"]
 
 #: the roofline constants the planner's tier models are built on (the
 #: card's, ``repro_torch.config``).  They set which layers are compute- or
@@ -52,27 +51,6 @@ __all__ = ["Scenario", "Simulation", "build_planner", "build_stack",
 #: put here.
 PEAK_FLOPS = _hw.PEAK_FLOPS_BF16
 HBM_BW = _hw.HBM_BW
-
-#: the ROADMAP.md open item 1 step that brings each option the port refuses
-_LATER = {
-    "engine.trace": "step 2 (obs/trace.py)",
-    "engine.timeline": "step 2 (obs/timeline.py)",
-    "topology.shards > 1": "step 1 (sim/shard.py)",
-}
-
-
-def _not_ported(option: str):
-    return NotImplementedError(
-        f"{option} is not ported yet: ROADMAP.md open item 1, {_LATER[option]}")
-
-
-def _refuse_unported(spec: ScenarioSpec) -> None:
-    if spec.topology.shards > 1:
-        raise _not_ported("topology.shards > 1")
-    if spec.engine.trace is not None:
-        raise _not_ported("engine.trace")
-    if spec.engine.timeline is not None:
-        raise _not_ported("engine.timeline")
 
 
 @dataclass
@@ -167,6 +145,18 @@ def build_planner(cfg, spec: PlannerSpec):
     return graph, planner
 
 
+def engine_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """The torch dtype ``EngineSpec.dtype`` names (None: the params')."""
+    if name is None:
+        return None
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(
+            f"unknown engine dtype {name!r}: expected "
+            "a torch dtype name such as 'float32' or 'bfloat16'")
+    return dtype
+
+
 def build_topology(spec: TopologySpec, seed: int
                    ) -> Tuple[FleetTopology, Optional[MobilityModel]]:
     """Sample the fleet a topology spec describes (``(topo, None)`` for
@@ -229,7 +219,12 @@ class Simulation:
     def build(self) -> Scenario:
         if self.scenario is not None:
             return self.scenario
-        _refuse_unported(self.spec)
+        if self.spec.topology.shards > 1:
+            raise ValueError(
+                f"spec {self.spec.name!r} is sharded (topology.shards="
+                f"{self.spec.topology.shards}): there is no single live "
+                "Scenario to build — Simulation.run() executes the tiles "
+                "and merges, or use repro_torch.sim.shard.run_sharded directly")
         import time
         t_build0 = time.perf_counter()
         spec = self.spec
@@ -253,13 +248,7 @@ class Simulation:
         vocab = sc.cfg.vocab_size \
             if (spec.workload.sample_prompts or spec.engine.real_decode) else 0
         workload = build_workload(spec.workload, topo, seeds.workload, vocab)
-        dtype = None
-        if spec.engine.dtype is not None:
-            dtype = getattr(torch, spec.engine.dtype, None)
-            if not isinstance(dtype, torch.dtype):
-                raise ValueError(
-                    f"unknown engine dtype {spec.engine.dtype!r}: expected "
-                    "a torch dtype name such as 'float32' or 'bfloat16'")
+        dtype = engine_dtype(spec.engine.dtype)
         autoscaler = admission = None
         if spec.autoscale is not None or spec.admission is not None:
             from repro_torch.fleet.elastic import build_elasticity
@@ -267,6 +256,15 @@ class Simulation:
                 spec.autoscale, spec.admission, graph=sc.graph,
                 planner=sc.planner, latency_req_s=spec.planner.latency_req_s,
                 ref_chips=spec.topology.edge_capacity)
+        tracer = timeline = None
+        if spec.engine.trace is not None:
+            from repro_torch.obs.trace import Tracer
+            tracer = Tracer()
+        if spec.engine.timeline is not None:
+            from repro_torch.obs.timeline import Timeline
+            timeline = Timeline(topo.num_edges,
+                                num_devices=topo.num_devices,
+                                dt=spec.engine.timeline_dt)
         engine = FleetEngine(
             topo, sc.graph, sc.planner, router=spec.router.name,
             model=sc.model, params=sc.params, dynamic=spec.engine.dynamic,
@@ -276,6 +274,7 @@ class Simulation:
             max_coop=spec.router.max_coop,
             retain_records=spec.engine.retain_records,
             autoscaler=autoscaler, admission=admission,
+            tracer=tracer, timeline=timeline,
             batch_decode=spec.engine.batch_decode,
             shard_decode=spec.engine.shard_decode,
             arena_decode=spec.engine.arena_decode,
@@ -287,5 +286,18 @@ class Simulation:
         return sc
 
     def run(self) -> FleetMetrics:
+        if self.spec.topology.shards > 1:
+            # sharded geography: tiles run (sequentially here; pass
+            # processes= to run_sharded for parallelism) and merge on
+            # virtual-time keys — bit-identical either way
+            from repro_torch.sim.shard import run_sharded
+            return run_sharded(self.spec)
         sc = self.build()
-        return sc.engine.run(sc.workload)
+        metrics = sc.engine.run(sc.workload)
+        # observers are read-only: saving artifacts after the run cannot
+        # perturb the metrics above
+        if sc.engine.tracer is not None and self.spec.engine.trace:
+            sc.engine.tracer.save(self.spec.engine.trace)
+        if sc.engine.timeline is not None and self.spec.engine.timeline:
+            sc.engine.timeline.to_jsonl(self.spec.engine.timeline)
+        return metrics

@@ -14,8 +14,10 @@ the CPU.
   counters, for the arena and for batched decode without it.
 * A port-only mobile run (``_mobile_spec``) hands requests over mid-stream
   and its arena run equals its serial run.
-* Options the port does not have yet are refused, never ignored
-  (``calibration`` is ported: ``tests/test_torch_calib.py``).
+* ``engine.dtype`` names a torch dtype, and a real-decode spec needs a
+  card unless the caller asks for the CPU.  (``calibration``,
+  ``engine.trace``/``engine.timeline`` and ``topology.shards > 1`` are
+  ported: ``tests/test_torch_{calib,obs,shard}.py``.)
 """
 import dataclasses
 import json
@@ -30,8 +32,7 @@ import repro.config as ref_config
 import repro_torch.sim.build as sim_build
 from repro.sim import Simulation as RefSimulation
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.sim import (EngineSpec, ScenarioSpec, Simulation,
-                             TopologySpec, get_scenario)
+from repro_torch.sim import EngineSpec, ScenarioSpec, Simulation, get_scenario
 from test_arena import _mobile_spec, _static_spec
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
@@ -212,19 +213,6 @@ def test_mobile_arena_equals_serial_under_handover():
 
 
 # ------------------------------------------------------------- spec options
-@pytest.mark.parametrize("change,option", [
-    (lambda s: dataclasses.replace(s, engine=dataclasses.replace(
-        s.engine, trace="t.json")), "engine.trace"),
-    (lambda s: dataclasses.replace(s, engine=dataclasses.replace(
-        s.engine, timeline="t.jsonl")), "engine.timeline"),
-    (lambda s: dataclasses.replace(s, topology=TopologySpec(
-        num_devices=8, num_edges=2, shards=2)), "topology.shards > 1"),
-])
-def test_unported_options_are_refused(change, option):
-    with pytest.raises(NotImplementedError, match=option.split(" ")[0]):
-        Simulation(change(get_scenario("smoke-lm"))).run()
-
-
 def test_engine_dtype_names_a_torch_dtype():
     spec = get_scenario("smoke-lm")
     bad = dataclasses.replace(spec, engine=EngineSpec(dtype="int4x"))
