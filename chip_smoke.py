@@ -35,7 +35,15 @@ order; any failure exits non-zero:
    both dtypes (the arena spec's 6-token prefill, a ragged tile, T > S
    causal and not, the serial cache, the arena's B 8 T 32 with a
    zero-length row, lengths on a split boundary, one past it, past T and
-   zero), and the exit head at D 64 V 256, the served shapes timed;
+   zero), and the exit head at D 64 V 256, the served shapes timed; then
+   phases 18-19's new shapes: flash and decode attention at starcoder2-15b's
+   G 12 (48 heads over 4, hd 128: S 1000 and 12, T > S, a single ragged
+   tile; the caches T 1017 and 29 with lengths on a split boundary, one
+   past it, past T and zero) and granite-3-8b's G 4 hd 128 at B4 S1000, and
+   the exit head at 4 x 2048 x 49280, 4 x 4096 x 49280 and 4 x 6144 x 49152
+   with ties and with every logit negative, and at granite's real V 49155
+   (its last tile 125 rows past V) with the last real row tied at 0 with
+   what a padding row would score;
 4. serve llama3.2-1b: full width in bfloat16 through ``ServingEngine.serve``
    (Edgent plan, prefill, right-sized decode, exit-head token) with every
    launch counter at zero before and its kernels' above zero after, each
@@ -168,7 +176,26 @@ order; any failure exits non-zero:
    llama3.2-1b arena fleet again with a ``Tracer``, a ``Timeline`` and a
    ``SimProfiler`` attached, summary, handover log and tokens bit-identical
    to the unobserved run, the trace valid, the profiler's wall per event
-   kind logged.
+   kind logged;
+18. every other served config (after phase 17, before the profiler
+   sessions): granite-3-2b (40 layers, V 49155), granite-3-8b (hd 128) and
+   starcoder2-15b (G 12, D 6144; 43.4 GB of bf16 weights) at full width and
+   depth in bf16 through ``ServingEngine.serve`` as phases 4, 6 and 8 (8
+   short and 4 demoted 1000-token prompts, every launch count equal to what
+   the structure and the steps give, the tokens that fall in the
+   embedding's padding rows logged), each then kernel path against plain
+   path in float32 as phase 5, end to end (starcoder2-15b at 20 of its 40
+   layers, parameters drawn anew in float32); then llama4-maverick at full
+   width and 2 of 48 layers (one dense/MoE unit of 128 experts, ~35 GB in
+   bf16; its segments [0, 1]) through ``ServingEngine.serve``, and its MoE
+   layer's gather dispatch against the einsum dispatch on the embedded
+   1000-token prompts;
+19. the fleet with real decode as phases 10-11 for llama4-scout (8 layers in
+   bf16, 4 in float32, its MoE drops past capacity counted), llava's text
+   backbone (whole; the fleet feeds no image prefix) and starcoder2-15b
+   (whole in bf16, 20 layers in float32; its decode kernel checked and
+   timed first at the arena's shape, G 12), serial and arena, over 1.5-2 s
+   horizons.
 
 The line before the last is the JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
@@ -177,6 +204,7 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -191,20 +219,33 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 LLAMA, RWKV, ZAMBA = "llama3.2-1b", "rwkv6-3b", "zamba2-2.7b"
+GRANITE2, GRANITE8, STARCODER = "granite-3-2b", "granite-3-8b", "starcoder2-15b"
+LLAVA, SEAMLESS, SCOUT = "llava-next-mistral-7b", "seamless-m4t-large-v2", "llama4-scout-17b-a16e"
+MAVERICK = "llama4-maverick-400b-a17b"
 BATCH = 4
 NEW_TOKENS = 16
 SHORT_PROMPT, LONG_PROMPT = 12, 1000
 SHORT_SLO = 0.4
-# The long prompts' SLO: their 1000-token prefill nearly spends it in the
-# latency model's virtual time, so EDF serves them first and deadline
-# demotion decodes them at earlier exits (llama3.2-1b: exits 2-4; rwkv6-3b
-# and zamba2-2.7b: exits 2-3), and the right-sized model runs on the card
-# beside the full one.
-LONG_SLO = {LLAMA: 0.031, RWKV: 0.068, ZAMBA: 0.0555}
+# (short, long) SLOs of a served config at its depth.  The long prompts'
+# SLO: their 1000-token prefill nearly spends it in the latency model's
+# virtual time, so EDF serves them first and deadline demotion decodes them
+# at earlier exits, and the right-sized model runs on the card beside the
+# full one (llama3.2-1b: exits 2-4; rwkv6-3b and zamba2-2.7b: exits 2-3;
+# granite and starcoder2: exits 3-4; two-layer
+# llama4-maverick: exit 1, before its one unit, whose segments are [0, 1]).
+# starcoder2-15b's 12-token batch takes ~0.54 s of virtual time at
+# its full 40 layers, so at SHORT_SLO it too would be demoted: its short SLO
+# is 1 s, and the short batches decode at the full exit as the others' do.
+SERVE_SLO = {(LLAMA, 16): (SHORT_SLO, 0.031), (RWKV, 32): (SHORT_SLO, 0.068),
+             (ZAMBA, 54): (SHORT_SLO, 0.0555), (GRANITE2, 40): (SHORT_SLO, 0.065),
+             (GRANITE8, 40): (SHORT_SLO, 0.21), (STARCODER, 40): (1.0, 0.55),
+             (STARCODER, 20): (SHORT_SLO, 0.28), (MAVERICK, 2): (SHORT_SLO, 0.2)}
 # the kernels each served model's main path must launch
-PATH_KERNELS = {LLAMA: ("flash_attention", "decode_attention", "exit_confidence"),
-                RWKV: ("ssm_scan", "exit_confidence"),
-                ZAMBA: ("flash_attention", "decode_attention", "ssm_scan", "exit_confidence")}
+ATTN_PATH = ("flash_attention", "decode_attention", "exit_confidence")
+PATH_KERNELS = {LLAMA: ATTN_PATH, RWKV: ("ssm_scan", "exit_confidence"),
+                ZAMBA: ("flash_attention", "decode_attention", "ssm_scan", "exit_confidence"),
+                GRANITE2: ATTN_PATH, GRANITE8: ATTN_PATH, STARCODER: ATTN_PATH,
+                MAVERICK: ATTN_PATH}
 # stated tolerances:
 #  * attention: the kernel against its plain version computed in float32
 #    from the same inputs (widened, never rounded on the plain side), at
@@ -249,7 +290,8 @@ F32_UNIT = 2.0 ** -24
 # zamba2-2.7b is held end to end (phase 9): its gated RMSNorm normalises over
 # all 5120 channels of a block, not over one head's 64, and its two paths
 # stay within HIDDEN_TOL on the card (PERF.md, section 6).
-END_TO_END = {LLAMA: True, RWKV: False, ZAMBA: True}
+END_TO_END = {LLAMA: True, RWKV: False, ZAMBA: True, GRANITE2: True, GRANITE8: True,
+              STARCODER: True}
 TIMED_RUNS, WARMUP_RUNS = 20, 3
 L2_FLUSH_BYTES = 256 * 2**20          # > the H100's 50 MB L2
 SPIN_CYCLES = 2_000_000               # ~1 ms at the H100's clock
@@ -460,7 +502,7 @@ def exit_head_composite(h2, emb):
 
 
 def exit_head_check(torch, timer, draw, dt, rows, d, vv, timed=False, negative=False,
-                    boundary_tie=False):
+                    boundary_tie=False, pad_tie=False):
     """The exit head over h [1, rows, d] (drawn first) against an embedding
     [vv, d] (drawn second) with exact ties across chunks and warps (row 0's
     maximum is a 3-way tie, which the first index must win), against its
@@ -471,9 +513,13 @@ def exit_head_check(torch, timer, draw, dt, rows, d, vv, timed=False, negative=F
     V would score 0 and win.  With ``boundary_tie`` the last row's maximum
     is a tie between the last vocab row of a chunk of the kernel's plan on
     this card and the first row of the next chunk, which the first must
-    win (with one row, in place of row 0's tie).  With ``timed`` (bf16
-    only) its times beside the plain version, the library composite and
-    its bound."""
+    win (with one row, in place of row 0's tie).  With ``pad_tie`` (and
+    ``negative``) the last vocab row scores exactly 0 on every row, the
+    score of a zero-filled row past V: an unmasked padding row of the
+    kernel's last tile would tie it (the first index still wins) and add
+    its mass to conf and entropy; every row must pick V - 1.  With
+    ``timed`` (bf16 only) its times beside the plain version, the library
+    composite and its bound."""
     import repro_torch.config as C
     from repro_torch.kernels.exit_head import ops as eh_ops
     from repro_torch.kernels.exit_head import ref as eh_ref
@@ -481,6 +527,8 @@ def exit_head_check(torch, timer, draw, dt, rows, d, vv, timed=False, negative=F
     emb = draw(vv, d, dtype=dt, scale=1.0 / math.sqrt(d))
     if negative:
         h, emb = h.abs(), -emb.abs()
+        if pad_tie:
+            emb[vv - 1] = 0.0
     else:
         emb[6] = emb[5]                      # same chunk, neighbouring warps
         emb[vv - 100] = emb[5]               # a chunk near the end
@@ -502,6 +550,9 @@ def exit_head_check(torch, timer, draw, dt, rows, d, vv, timed=False, negative=F
     if not negative and not (boundary_tie and rows == 1):
         require(got["token"][0, 0].item() == 5,
                 f"exit head V{vv}: tie went to {got['token'][0, 0].item()}, not 5")
+    if pad_tie:
+        require(bool((got["token"] == vv - 1).all()), f"exit head V{vv}: the tie of row "
+                f"{vv - 1} with the padding past V went to {got['token'].tolist()}")
     if boundary_tie:
         require(got["token"][0, rows - 1].item() == edge - 1,
                 f"exit head V{vv}: the chunk-boundary tie went to "
@@ -519,7 +570,9 @@ def exit_head_check(torch, timer, draw, dt, rows, d, vv, timed=False, negative=F
     ee = ((got["entropy"] - plain["entropy"]).abs()
           / plain["entropy"].abs().clamp_min(1.0)).max().item()
     log(f"check exit_confidence {dt} rows{rows} D{d} V{vv}"
-        f"{' all logits negative' if negative else ''}{tie}: tokens equal "
+        f"{' all logits negative' if negative else ''}"
+        f"{f', row {vv - 1} tied with the padding at 0' if pad_tie else ''}{tie}: "
+        f"tokens equal "
         f"{not diff}, conf err {ec:.3g} (tol {CONF_TOL}), entropy rel err "
         f"{ee:.3g} (tol {ENT_RTOL})")
     require(ec <= CONF_TOL and ee <= ENT_RTOL, f"exit head {dt} D{d} V{vv} disagrees")
@@ -889,19 +942,17 @@ def scan_checks(torch, timer, randn):
 
 
 # ---------------------------------------------------------------- phases 4-7
-def serving_setup(arch):
-    from repro_torch.configs import get_config
+def serving_setup(cfg):
     from repro_torch.core import EdgentPlanner, lm_graph
     from repro_torch.core.latency_model import RooflineLatencyModel
     from repro_torch.data.bandwidth import dcn_trace
     from repro_torch.serving.tiers import Link
 
-    cfg = get_config(arch)
     graph = lm_graph(cfg, batch=BATCH, seq=1)
     planner = EdgentPlanner(graph, latency_req_s=0.4).with_models(
         RooflineLatencyModel(chips=8, efficiency=0.4),
         RooflineLatencyModel(chips=1, efficiency=0.4))
-    return cfg, graph, planner, Link(trace_bps=dcn_trace(0, 2048))
+    return graph, planner, Link(trace_bps=dcn_trace(0, 2048))
 
 
 def make_requests(Request, vocab, plan):
@@ -916,18 +967,21 @@ def expected_launches(model, prompts, steps):
     ``prompts`` the prompt length of each batch (one prefill each),
     ``steps`` the number of segments each decode step ran.  A dense layer
     and a shared-attention application are one flash launch in a prefill
-    and one decode launch in a step; an RWKV-6 or Mamba-2 block is one scan
+    and one decode launch in a step (a two-layer MoE unit, llama4-maverick's,
+    two of each); an RWKV-6 or Mamba-2 block is one scan
     launch, chunked in a bfloat16 prefill of at least ssm_ops.CHUNK tokens;
     the exit head picks one token after each prefill and each step."""
     from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.models.transformer import unit_size
     cfg, segs = model.cfg, model.segment_lengths()
-    attn_every = {"dense": 1, "vlm": 1, "hybrid": cfg.hybrid_attn_period}.get(cfg.family)
+    attn_every = {"dense": 1, "vlm": 1, "moe": 1,
+                  "hybrid": cfg.hybrid_attn_period}.get(cfg.family)
     scans = cfg.family in ("ssm", "hybrid")
 
-    def attn(n_layers):
-        return n_layers // attn_every if attn_every else 0
+    def attn(n_units):
+        return n_units * unit_size(cfg) // attn_every if attn_every else 0
 
-    out = {"flash_attention": attn(cfg.num_layers) * len(prompts),
+    out = {"flash_attention": attn(sum(segs)) * len(prompts),
            "decode_attention": sum(attn(sum(segs[:n])) for n in steps),
            "exit_confidence": len(prompts) + len(steps)}
     if scans:
@@ -938,12 +992,18 @@ def expected_launches(model, prompts, steps):
     return out
 
 
-def serve_main_path(torch, arch):
+def serve_main_path(torch, arch, cfg=None):
+    """``ServingEngine.serve`` of ``arch`` (its full config, or ``cfg``, a
+    cut of its depth) in bfloat16, its launches held against the model's
+    structure.  Returns (params, launch counts)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import Model
     from repro_torch.serving import Request, ServingEngine
 
-    cfg, graph, planner, link = serving_setup(arch)
+    cfg = cfg or get_config(arch)
+    graph, planner, link = serving_setup(cfg)
+    short_slo, long_slo = SERVE_SLO[cfg.name, cfg.num_layers]
     # zamba2-2.7b's attention launches are its shared block's, at head dim 80
     require(arch != ZAMBA or cfg.hd == 80, f"serve {arch}: head dim {cfg.hd}, not 80")
     model = Model(cfg)
@@ -955,10 +1015,10 @@ def serve_main_path(torch, arch):
         f"{model.segment_lengths()} params {n_params / 1e9:.3f} B in bf16")
     engine = ServingEngine(model, params, graph, planner, link, batch_size=BATCH,
                            dtype=torch.bfloat16)
-    # 8 short prompts and 4 long ones, whose SLO demotes them (LONG_SLO)
-    log(f"serve: long-prompt SLO {LONG_SLO[arch] * 1e3:g} ms")
-    reqs = make_requests(Request, cfg.vocab_size, [(SHORT_PROMPT, SHORT_SLO)] * 8
-                         + [(LONG_PROMPT, LONG_SLO[arch])] * 4)
+    # 8 short prompts and 4 long ones, whose SLO demotes them (SERVE_SLO)
+    log(f"serve: SLOs {short_slo * 1e3:g} ms (short), {long_slo * 1e3:g} ms (long)")
+    reqs = make_requests(Request, cfg.vocab_size, [(SHORT_PROMPT, short_slo)] * 8
+                         + [(LONG_PROMPT, long_slo)] * 4)
     # wall time of each batch (a batch ends on a host read of its tokens,
     # so the synchronisations here add no wait of their own)
     batches = []
@@ -1013,6 +1073,12 @@ def serve_main_path(torch, arch):
     for rid, toks in stats.tokens.items():
         require(len(toks) == NEW_TOKENS, f"serve: request {rid} got {len(toks)} tokens")
         require(all(0 <= t < cfg.padded_vocab for t in toks), f"serve: bad token in {rid}")
+    if cfg.padded_vocab > cfg.vocab_size:
+        # the head scores every row of the padded embedding, as the
+        # reference's does: the config's padding rows are random rows
+        past = sum(t >= cfg.vocab_size for v in stats.tokens.values() for t in v)
+        log(f"serve {arch}: {past} of {n_tok} tokens in the embedding's padding rows "
+            f"[{cfg.vocab_size}, {cfg.padded_vocab})")
     h = engine.last_hidden
     require(h is not None and h.shape[1:] == (1, cfg.d_model)
             and torch.isfinite(h.float()).all().item(), "serve: bad last hidden state")
@@ -1105,7 +1171,7 @@ def divergence(a, b, margins):
     return flips, err
 
 
-def kernel_vs_plain(torch, params_bf16, arch):
+def kernel_vs_plain(torch, params_bf16, arch, cfg=None):
     """Serve two batches of 4 requests in float32 through the kernels and
     through the plain path: the 12-token batch that decodes at the full
     exit, and the serve phase's 1000-token batch whose deadline demotes it
@@ -1118,20 +1184,24 @@ def kernel_vs_plain(torch, params_bf16, arch):
     top-2 margin is below MARGIN_TOL, and their last hidden states within
     HIDDEN_TOL on the rows that did not flip.  For rwkv6-3b (END_TO_END) the
     end-to-end distances are measured and logged beside those of the plain
-    path from the same path with a float64 scan."""
+    path from the same path with a float64 scan.  ``cfg``: a cut of the
+    depth of ``arch``'s config, whose (float32) parameters are given."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.ssm_scan import ops as ss_ops
     from repro_torch.models import Model
     from repro_torch.models import linear_scan
     from repro_torch.serving import Request, ServingEngine
 
+    cfg = cfg or get_config(arch)
     params = _to_f32(params_bf16)
     impls = ("kernel", "dense") + (() if END_TO_END[arch] else ("float64 scan",))
-    for label, plan in (("12-token", [(SHORT_PROMPT, SHORT_SLO)] * BATCH),
-                        ("1000-token demoted", [(LONG_PROMPT, LONG_SLO[arch])] * BATCH)):
+    short_slo, long_slo = SERVE_SLO[cfg.name, cfg.num_layers]
+    for label, plan in (("12-token", [(SHORT_PROMPT, short_slo)] * BATCH),
+                        ("1000-token demoted", [(LONG_PROMPT, long_slo)] * BATCH)):
         runs = {}
         worst = {"calls": 0, "o": 0.0, "state": 0.0, "err": 0.0, "tokens": 0}
         for impl in impls:
-            cfg, graph, planner, link = serving_setup(arch)
+            graph, planner, link = serving_setup(cfg)
             engine = ServingEngine(Model(cfg), params, graph, planner, link,
                                    batch_size=BATCH, dtype=torch.float32,
                                    impl="kernel" if impl == "kernel" else "dense")
@@ -1174,11 +1244,11 @@ def kernel_vs_plain(torch, params_bf16, arch):
         require(worst["o"] <= 1.0 and worst["state"] <= 1.0,
                 f"{label}: a scan launch disagrees with the plain scan on its inputs: "
                 f"{worst['o']} / {worst['state']} of the allowed error")
-        log(f"kernel path ({arch}, f32, full width, {label}): {worst['calls']} scan launches "
-            f"held against the plain scan on their inputs, o max_abs_err {worst['err']:.3g}, "
-            f"worst err/allowed o {worst['o']:.3g} state {worst['state']:.3g}; "
-            f"{worst['tokens']} tokens held "
-            f"against the plain head on the same hidden state")
+        log(f"kernel path ({arch}, f32, full width, {cfg.num_layers} layers, {label}): "
+            f"{worst['calls']} scan launches held against the plain scan on their inputs, "
+            f"o max_abs_err {worst['err']:.3g}, worst err/allowed o {worst['o']:.3g} state "
+            f"{worst['state']:.3g}; {worst['tokens']} tokens held against the plain head on "
+            "the same hidden state")
         for a, b in (("kernel", "dense"), ("dense", "float64 scan"),
                      ("kernel", "float64 scan")):
             if b not in runs:
@@ -1186,9 +1256,9 @@ def kernel_vs_plain(torch, params_bf16, arch):
             _, pa, _, ha, _ = runs[a]
             _, pb, mb, hb, _ = runs[b]
             flips, e = divergence((pa, ha), (pb, hb), mb)
-            log(f"{a} vs {b} path ({arch}, f32, full width, {label}): {len(pb)} token "
-                f"steps x {hb.shape[0]} rows, decode variants {vk}, last exit "
-                f"{sk.exits[-1]}, first flip (step, {b} top-2 margin) by row "
+            log(f"{a} vs {b} path ({arch}, f32, full width, {cfg.num_layers} layers, "
+                f"{label}): {len(pb)} token steps x {hb.shape[0]} rows, decode variants {vk}, "
+                f"last exit {sk.exits[-1]}, first flip (step, {b} top-2 margin) by row "
                 f"{ {r: (st, round(m, 6)) for r, (st, m) in sorted(flips.items())} }, "
                 f"last hidden max_abs_err {e:.3g} on the other rows (tol {HIDDEN_TOL}), "
                 f"min {b} margin {min(min(m) for m in mb):.3g}")
@@ -1207,9 +1277,12 @@ def kernel_vs_plain(torch, params_bf16, arch):
 # FLEET_PROMPT-token prompts, served at full width through FleetEngine.
 FLEET_PROMPT = 64
 # zamba2-2.7b's horizon is cut to keep the script's time: its serial path
-# takes ~0.06 s a token
-FLEET_HORIZON = {LLAMA: 4.0, ZAMBA: 3.0}
-FLEET_STRATEGIES = {LLAMA: ("serial", "batched", "arena"), ZAMBA: ("serial", "arena")}
+# takes ~0.06 s a token; so are phase 19's (the families and starcoder2-15b,
+# whose serial paths take more a token than llama3.2-1b's)
+FLEET_HORIZON = {LLAMA: 4.0, ZAMBA: 3.0, SCOUT: 2.0, LLAVA: 1.5, STARCODER: 1.5}
+FLEET_STRATEGIES = {LLAMA: ("serial", "batched", "arena"), ZAMBA: ("serial", "arena"),
+                    SCOUT: ("serial", "arena"), LLAVA: ("serial", "arena"),
+                    STARCODER: ("serial", "arena")}
 # the arena's slots (the edges' capacity) and its length: prompt + the larger
 # token budget + 1, rounded up to a power of two
 ARENA_SLOTS, ARENA_LEN = 8, 128
@@ -1217,7 +1290,10 @@ PROFILE_STEPS = 5
 # the kernels a fleet path launches: the fleet takes each token from the
 # model-dtype logits, as the reference's fleet does, not from the exit head
 FLEET_KERNELS = {LLAMA: ("flash_attention", "decode_attention"),
-                 ZAMBA: ("flash_attention", "decode_attention", "ssm_scan")}
+                 ZAMBA: ("flash_attention", "decode_attention", "ssm_scan"),
+                 SCOUT: ("flash_attention", "decode_attention"),
+                 LLAVA: ("flash_attention", "decode_attention"),
+                 STARCODER: ("flash_attention", "decode_attention")}
 
 
 def fleet_spec(arch):
@@ -1348,21 +1424,25 @@ def streams_held(label, want, got, margins):
 
 
 def fleet_phase(torch, arch):
-    """Phase 10 (llama3.2-1b) or 11 (zamba2-2.7b): the fleet with real
-    decode at full width, through each decode strategy in bfloat16 (timed
-    after a warm-up run), then serial against arena in float32, held."""
+    """Phase 10 (llama3.2-1b), 11 (zamba2-2.7b) or 19 (scout, llava's text
+    backbone, starcoder2-15b): the fleet with real decode at full width,
+    through each decode strategy in bfloat16 (timed after a warm-up run),
+    then serial against arena in float32, held (at the depths of
+    CUT_LAYERS; an MoE's tokens dropped past capacity counted).  Returns
+    the launches of the timed bf16 runs and the observed run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.exit_head import ops as eh_ops
     from repro_torch.models import Model
 
-    cfg = get_config(arch)
+    cfg, cfg32 = family_config(arch), family_config(arch, "f32")
     model = Model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init_params(gen, dtype=torch.bfloat16, device="cuda")
     calls = record_calls(model)
     spec = fleet_spec(arch)
-    log(f"fleet {arch}: {cfg.num_layers} layers d {cfg.d_model} heads {cfg.num_heads}/"
+    log(f"fleet {arch}: {cfg.num_layers} layers ({cfg32.num_layers} in float32) d "
+        f"{cfg.d_model} heads {cfg.num_heads}/"
         f"{cfg.num_kv_heads} of {cfg.hd} vocab {cfg.padded_vocab}, segments "
         f"{model.segment_lengths()}; {spec.topology.num_devices} devices, "
         f"{spec.topology.num_edges} edges of {ARENA_SLOTS} slots, {spec.workload.rate_hz} Hz "
@@ -1441,12 +1521,28 @@ def fleet_phase(torch, arch):
     del engines, engine
 
     # -- float32: serial against arena, held
-    params32 = _to_f32(params)
-    del params
+    if cfg32 == cfg:
+        params32 = _to_f32(params)
+        del params
+    else:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Model(cfg32)
+        params32 = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                     dtype=torch.float32, device="cuda")
+        log(f"fleet {arch} f32: reduced to {cfg32.num_layers} of its "
+            f"{get_config(arch).num_layers} layers, parameters from seed 0 in float32, "
+            f"segments {model.segment_lengths()}")
     torch.cuda.empty_cache()
     engine, workload = fleet_engine(arch, model, params32, torch.float32, "serial")
     margins = record_margins(engine)
-    m_serial = engine.run(workload)
+    drops = {}
+    with moe_drops(torch, drops) if cfg.num_experts else contextlib.nullcontext():
+        m_serial = engine.run(workload)
+    if drops:
+        log(f"fleet {arch} f32 serial: MoE tokens dropped past capacity by tokens a call "
+            f"(dropped, routed): {drops}")
     t_serial = {r.rid: list(r.tokens) for r in workload}
     del engine
     engine, workload = fleet_engine(arch, model, params32, torch.float32, "arena")
@@ -1481,7 +1577,10 @@ def fleet_phase(torch, arch):
         for name, n in observed_fleet(torch, arch, model, params32, m_arena,
                                       t_arena).items():
             launches[name] = launches.get(name, 0) + n
+    # the engines' wrapped methods (record_margins, hold_masked_rows) close
+    # over the engine: collect the cycles, so that the parameters go now
     del params32
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -1644,7 +1743,7 @@ def arena_profile(torch, archs):
 
 def arena_kernel_times(torch, arch):
     """The decode-attention kernel (and for zamba2-2.7b the stepped Mamba-2
-    scan) at the arena's shapes: checked against its plain version with
+    scan) at the arena's shapes (starcoder2-15b's: G 12): checked against its plain version with
     masked rows of length 1 among them, then timed with ARENA_SLOTS active
     rows beside its plain version, SDPA and its bound: ``{kernel: times}``."""
     import torch.nn.functional as F
@@ -1666,7 +1765,7 @@ def arena_kernel_times(torch, arch):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
     B, T = ARENA_SLOTS, ARENA_LEN
-    n_units = 2 if arch == LLAMA else cfg.num_layers // cfg.hybrid_attn_period
+    n_units = cfg.num_layers // cfg.hybrid_attn_period if arch == ZAMBA else 2
     active = [FLEET_PROMPT + 1 + i for i in range(B)]
     out = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -2386,7 +2485,6 @@ def lm_train_profile(torch, walls):
 # cross-attention over that memory) and llama4-scout-17b-a16e (a top-1 MoE of
 # 16 experts every layer, 40 heads padded to 48 over 8 kv heads: G = 6),
 # with the int8 KV cache on llava.  Random weights from torch.Generator seed 0.
-LLAVA, SEAMLESS, SCOUT = "llava-next-mistral-7b", "seamless-m4t-large-v2", "llama4-scout-17b-a16e"
 FAMILY_STEPS = 16                  # decode steps at each exit
 LLAVA_BATCH, LLAVA_TEXT = 2, 32    # text tokens after the 2880-embedding prefix
 ENC_FRAMES, DEC_PROMPT = 1000, 12
@@ -2394,6 +2492,12 @@ ENC_FRAMES, DEC_PROMPT = 1000, 12
 # card's 80 GB (the full depth waits for the torch.distributed substrate);
 # 8 layers are ~35 GB in bf16, 4 layers ~37 GB in f32
 SCOUT_LAYERS = {"bf16": 8, "f32": 4}
+# phases 18-19's depth cuts: starcoder2-15b's float32 holds at 20 of its 40
+# layers (40 are 86.8 GB in float32, 20 ~44 GB; in bf16 it runs whole, 43.4
+# GB), llama4-maverick at 2 of 48 layers, its one dense/MoE unit (16.4 B
+# parameters, ~35 GB in bf16: one MoE layer of 128 experts is 16.1 B), in
+# bf16 only.  By config and precision; a config not named runs whole
+CUT_LAYERS = {SCOUT: SCOUT_LAYERS, STARCODER: {"f32": 20}, MAVERICK: {"bf16": 2}}
 # the int8 cache's holds: decode within rel INT8_REL of the unquantized
 # cache's (the reference's bound, tests/test_perf_features.py), its bytes
 # under INT8_BYTES of the unquantized bf16 cache's
@@ -2406,14 +2510,13 @@ FAMILY_KERNELS = {LLAVA: ("flash_attention", "decode_attention", "exit_confidenc
 
 
 def family_config(arch, precision="bf16"):
-    """The full config of ``arch``; scout's depth cut to SCOUT_LAYERS."""
+    """The full config of ``arch``, its depth cut as CUT_LAYERS says."""
     import dataclasses
 
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    if arch == SCOUT:
-        cfg = dataclasses.replace(cfg, num_layers=SCOUT_LAYERS[precision])
-    return cfg
+    layers = CUT_LAYERS.get(arch, {}).get(precision)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
 def family_kernel_times(torch):
@@ -2555,6 +2658,26 @@ def recorded_routes(torch, routes):
         top2 = probs.topk(2, dim=-1)
         routes.append((top2.indices[..., 0].cpu(),
                        (top2.values[..., 0] - top2.values[..., 1]).cpu()))
+        return inner(p, cfg, x, **kw)
+    return patched(MOE, "moe_ffn", moe_ffn)
+
+
+def moe_drops(torch, drops):
+    """Context: every MoE call adds, under its tokens a group (S), the
+    tokens its capacity drops and the tokens it routes (``drops``), from
+    the router's choices as ``moe_ffn`` takes them (the first expert on a
+    tie, in token order within a group)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as MOE
+    inner = MOE.moe_ffn
+
+    def moe_ffn(p, cfg, x, **kw):
+        probs, _ = MOE.route(p, cfg, x)
+        per_expert = F.one_hot(probs.argmax(-1), cfg.num_experts).sum(1)     # [G, E]
+        over = (per_expert - MOE._capacity(x.shape[1], cfg)).clamp_min(0).sum().item()
+        d, n = drops.get(x.shape[1], (0, 0))
+        drops[x.shape[1]] = (d + over, n + x.shape[0] * x.shape[1])
         return inner(p, cfg, x, **kw)
     return patched(MOE, "moe_ffn", moe_ffn)
 
@@ -2758,8 +2881,8 @@ def family_serve(torch, arch, model, params):
     16 new tokens, bf16, the counts as phase 4's.  Returns its launches."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import Request, ServingEngine
-    _, graph, planner, link = serving_setup(arch)
     cfg = model.cfg
+    graph, planner, link = serving_setup(cfg)
     engine = ServingEngine(model, params, graph, planner, link, batch_size=BATCH,
                            dtype=torch.bfloat16)
     calls = record_calls(model)
@@ -2796,8 +2919,6 @@ def family_phase(torch):
     SCOUT_LAYERS), each in bf16 through the kernels with its launches
     counted, then in float32 kernel path against plain path, held.
     Returns the launches of the bf16 runs, by kernel and by model."""
-    import gc
-
     from repro_torch.models import Model
 
     launches = {}
@@ -2915,23 +3036,12 @@ def family_phase(torch):
     model = Model(cfg)
     params32 = model.init_params(gen0(), dtype=torch.float32, device="cuda")
     padded_heads_zero(torch, model, params32)
-    # the gather dispatch against the einsum dispatch on the same input, the
-    # embedded 1000-token prompts, at the reference's own tolerance for the
-    # pair (tests/test_layers.py: 2e-4, the aux loss 1e-5 relative)
-    from repro_torch.models import moe as MOE
+    # the gather dispatch against the einsum dispatch on the embedded
+    # 1000-token prompts
     from repro_torch.models import transformer as TF
-    x = TF._embed_inputs(cfg, params32, toks, None)
-    lp = {k: v[0] for k, v in params32["segments"][0]["moe"].items()}
-    ye, ae = MOE.moe_ffn(lp, cfg, x, dispatch_mode="einsum")
-    yg, ag = MOE.moe_ffn(lp, cfg, x, dispatch_mode="gather")
-    ge = (ye - yg).abs().max().item()
-    dropped = int((yg == 0).all(-1).sum())
-    log(f"phase 16 {SCOUT} f32: gather against einsum dispatch on [{BATCH}, {LONG_PROMPT}, "
-        f"{cfg.d_model}]: max_abs_err {ge:.3g}, aux {ae.item():.6g} / {ag.item():.6g}, "
-        f"{dropped} tokens dropped past capacity {MOE._capacity(LONG_PROMPT, cfg)}")
-    require(ge <= 2e-4 and abs(ae.item() - ag.item()) <= 1e-5 * abs(ae.item()),
-            "scout: the gather dispatch disagrees with the einsum dispatch")
-    del x, ye, yg
+    gather_vs_einsum(f"phase 16 {SCOUT} f32", cfg,
+                     {k: v[0] for k, v in params32["segments"][0]["moe"].items()},
+                     TF._embed_inputs(cfg, params32, toks, None))
     routes_p, routes_k = [], []
     with recorded_routes(torch, routes_p):
         plain = family_run(torch, model, params32, toks, extra, impl="dense", margins=True)
@@ -3199,6 +3309,180 @@ def sim_phase(torch):
     return launches, by_arch
 
 
+# ---------------------------------------------------------------- phases 18-19
+# Every other served config at full width: granite-3-2b (llama3.2-1b's
+# attention, 32/8 heads of 64, at 40 layers; V 49155, padded to 49280),
+# granite-3-8b (32/8 heads of 128; the same V) and starcoder2-15b (48 heads
+# over 4: G 12, hd 128; D 6144, V 49152) through ``ServingEngine.serve`` as
+# phases 4-9, llama4-maverick-400b-a17b at 2 of 48 layers (CUT_LAYERS), and
+# the fleet with real decode for scout, llava's text backbone and
+# starcoder2-15b as phases 10-11.  Random weights from torch.Generator seed 0.
+DENSE_CONFIGS = (GRANITE2, GRANITE8, STARCODER)
+
+
+def config_kernel_times(torch):
+    """Phase 3 at phases 18-19's new shapes: each kernel against its plain
+    version in bfloat16 and float32, then timed (bf16) beside its plain
+    version, SDPA or the library composite, and its bound.  Flash at G 12
+    (starcoder2-15b, hd 128): its prefills S 1000 (a ragged last q-tile) and
+    S 12 (one q-tile, the second consumer warpgroup's rows all past S), T >
+    S, and a single ragged tile; granite-3-8b's S 1000 at G 4 hd 128.
+    Decode at G 12 (384 threads a block, ~75 KB of shared memory): the
+    serving caches T 1017 and 29 with lengths on a split boundary, one past
+    it, past T and zero; granite-3-8b's T 1017.  The exit head at the three
+    served (D, V): 4 x 2048 x 49280, 4 x 4096 x 49280, 4 x 6144 x 49152 with
+    exact ties and with every logit negative (the f32 head at D 6144 stages
+    4 x 6144 floats, 98 KB, a block), and at granite's real V 49155, where
+    the kernel's last 128-row tile holds 125 rows past V: all logits
+    negative, and the last real row tied at 0 with what an unmasked padding
+    row would score.  From a generator of its own (seed 18), so that the
+    other phase-3 inputs stay those of earlier runs.  Returns ``{kernel:
+    {label: times}}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    timer = Timer(torch)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    out = {"flash_attention": {}, "decode_attention": {}, "exit_confidence": {}}
+
+    def keep(kernel, label, t):
+        if t is not None:
+            out[kernel][label] = t
+
+    sc, g8 = get_config(STARCODER), get_config(GRANITE8)
+    H, KV, hd = sc.num_heads, sc.num_kv_heads, sc.hd
+    gH, gKV, ghd = g8.num_heads, g8.num_kv_heads, g8.hd
+    T = LONG_PROMPT + NEW_TOKENS + 1
+    T_SHORT = SHORT_PROMPT + NEW_TOKENS + 1
+    SK = fa_ops.SPLIT_KEYS
+    for dt in (torch.bfloat16, torch.float32):
+        for label, case in (
+                (f"{STARCODER} prefill", (BATCH, LONG_PROMPT, LONG_PROMPT, H, KV, hd)),
+                (f"{STARCODER} short prefill", (BATCH, SHORT_PROMPT, SHORT_PROMPT, H, KV, hd)),
+                (f"{GRANITE8} prefill", (BATCH, LONG_PROMPT, LONG_PROMPT, gH, gKV, ghd)),
+                (None, (2, 100, 300, H, KV, hd)),
+                (None, (2, 77, 77, H, KV, hd))):
+            keep("flash_attention", label,
+                 flash_check(torch, timer, randn, dt, *case, timed=label is not None))
+        for label, case in (
+                (f"{STARCODER} decode", (BATCH, T, H, KV, hd, [T - 1] * BATCH)),
+                (f"{STARCODER} short decode", (BATCH, T_SHORT, H, KV, hd,
+                                               [T_SHORT - 1] * BATCH)),
+                (None, (BATCH, T, H, KV, hd, [SK, SK + 1, T + 7, 0])),
+                (None, (BATCH, T, H, KV, hd, [5 * SK, 5 * SK + 1, 0, T])),
+                (None, (BATCH, T_SHORT, H, KV, hd, [0, 5, T_SHORT + 3, T_SHORT - 1])),
+                (f"{GRANITE8} decode", (BATCH, T, gH, gKV, ghd, [T - 1] * BATCH))):
+            keep("decode_attention", label,
+                 decode_check(torch, timer, randn, dt, *case, timed=label is not None))
+        for arch in DENSE_CONFIGS:
+            cfg = get_config(arch)
+            keep("exit_confidence", f"{arch} exit head",
+                 exit_head_check(torch, timer, randn, dt, BATCH, cfg.d_model,
+                                 cfg.padded_vocab, timed=True))
+            exit_head_check(torch, timer, randn, dt, BATCH, cfg.d_model, cfg.padded_vocab,
+                            negative=True)
+        for arch in (GRANITE2, GRANITE8):
+            cfg = get_config(arch)
+            exit_head_check(torch, timer, randn, dt, BATCH, cfg.d_model, cfg.vocab_size,
+                            negative=True, pad_tie=True)
+    for kernel, times in out.items():
+        for label, t in times.items():
+            log(f"time {kernel} {label}: {t}")
+    exit_tickets_zero(torch)
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
+def gather_vs_einsum(label, cfg, lp, x):
+    """An MoE layer's gather dispatch against its einsum dispatch on ``x``,
+    at the reference's own tolerance for the pair (tests/test_layers.py:
+    2e-4, the aux loss 1e-5 relative); logs the tokens dropped past
+    capacity."""
+    from repro_torch.models import moe as MOE
+    ye, ae = MOE.moe_ffn(lp, cfg, x, dispatch_mode="einsum")
+    yg, ag = MOE.moe_ffn(lp, cfg, x, dispatch_mode="gather")
+    ge = (ye.float() - yg.float()).abs().max().item()
+    B, S, D = x.shape
+    log(f"{label}: gather against einsum dispatch at E {cfg.num_experts} on [{B}, {S}, "
+        f"{D}]: max_abs_err {ge:.3g} (tol 2e-4), aux {ae.item():.6g} / {ag.item():.6g}, "
+        f"{int((yg == 0).all(-1).sum())} tokens dropped past capacity "
+        f"{MOE._capacity(S, cfg)}")
+    require(ge <= 2e-4 and abs(ae.item() - ag.item()) <= 1e-5 * abs(ae.item()),
+            f"{label}: the gather dispatch disagrees with the einsum dispatch")
+
+
+def maverick_phase(torch):
+    """llama4-maverick at full width and 2 of its 48 layers (CUT_LAYERS) in
+    bf16 through ``ServingEngine.serve`` as phases 4, 6 and 8, then its MoE
+    layer's gather dispatch against the einsum dispatch (E 128) on the
+    embedded 1000-token prompts: both feed the same slabs to the same expert
+    products, and their one-hot dispatch and combine products are exact, so
+    they are held at the reference's tolerance for the pair (2e-4; the aux
+    loss at 1e-5 relative) in bf16.  Returns the serve's launches."""
+    from repro_torch.models import transformer as TF
+
+    cfg = family_config(MAVERICK)
+    log(f"phase 18 {MAVERICK}: d {cfg.d_model}, {cfg.num_experts} experts of d_ff "
+        f"{cfg.d_ff} every second layer; reduced: depth 48 -> {cfg.num_layers} layers "
+        f"(one dense/MoE unit: its 24 MoE layers hold ~386 B parameters)")
+    params, counts = serve_main_path(torch, MAVERICK, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, LONG_PROMPT), generator=gen,
+                         device="cuda")
+    seg = next(sp for sp in params["segments"] if sp["moe"]["wg"].shape[0])
+    gather_vs_einsum(f"phase 18 {MAVERICK} bf16", cfg,
+                     {k: v[0] for k, v in seg["moe"].items()},
+                     TF._embed_inputs(cfg, params, toks, None))
+    del params, seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dense_phase(torch):
+    """Phase 18: granite-3-2b, granite-3-8b and starcoder2-15b at full width
+    and depth in bf16 through ``ServingEngine.serve`` (every launch counter
+    equal to what the model's structure and the steps give), each then
+    kernel path against plain path in float32 as phase 5 (starcoder2-15b at
+    the depth of CUT_LAYERS, parameters drawn anew in float32); then
+    maverick (``maverick_phase``).  Returns the launches by kernel and by
+    config."""
+    from repro_torch.models import Model
+
+    launches = {}
+    for arch in DENSE_CONFIGS:
+        t0 = time.perf_counter()
+        params, counts = serve_main_path(torch, arch)
+        for name, n in counts.items():
+            launches.setdefault(name, {})[arch] = n
+        t1 = time.perf_counter()
+        cfg32 = family_config(arch, "f32")
+        if cfg32 != family_config(arch):
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = Model(cfg32).init_params(torch.Generator(device="cuda").manual_seed(0),
+                                              dtype=torch.float32, device="cuda")
+            log(f"phase 18 {arch} f32: reduced to {cfg32.num_layers} layers, parameters "
+                "from seed 0 in float32")
+        kernel_vs_plain(torch, params, arch, cfg32)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"chip_smoke: phase 18 {arch}: serve {t1 - t0:.1f} s, kernel vs plain path "
+            f"{time.perf_counter() - t1:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in maverick_phase(torch).items():
+        launches.setdefault(name, {})[MAVERICK] = n
+    log(f"chip_smoke: phase 18 {MAVERICK}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -3243,6 +3527,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     at_families = family_kernel_times(torch)
+    at_configs = config_kernel_times(torch)
 
     # -- 4-9 the main paths, each with its kernel path against its plain path
     launches, at_arena, served = {}, {}, {}
@@ -3329,6 +3614,33 @@ def main() -> int:
                              if label.startswith("hd16 G2") else
                              by_arch[ZAMBA][name] if label.startswith("hd16 G1") else 0)
 
+    # -- 18-19 every other served config: granite-3-2b, granite-3-8b and
+    #    starcoder2-15b served at full width, maverick at 2 layers, then
+    #    scout, llava's text backbone and starcoder2-15b through the fleet;
+    #    before any profiler session
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t18 = time.perf_counter()
+    by_config = dense_phase(torch)
+    for name, per_config in by_config.items():
+        launches[name] = launches.get(name, 0) + sum(per_config.values())
+    t19 = time.perf_counter()
+    for arch in (SCOUT, LLAVA, STARCODER):
+        if arch == STARCODER:
+            for name, t in arena_kernel_times(torch, arch).items():
+                at_arena.setdefault(name, {})[arch] = t
+        for name, n in fleet_phase(torch, arch).items():
+            launches[name] = launches.get(name, 0) + n
+            by_config.setdefault(name, {}).setdefault(arch, 0)
+            by_config[name][arch] += n
+    log(f"chip_smoke: phase 18 took {t19 - t18:.1f} s, phase 19 "
+        f"{time.perf_counter() - t19:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches by config {by_config}")
+    for name, per_config in by_config.items():
+        for label, t in at_configs.get(name, {}).items():
+            t["launches"] = per_config.get(label.split()[0], 0)
+
     arena_profile(torch, (LLAMA, ZAMBA))
     t_prof = time.perf_counter()
     lm_train_profile(torch, lm_walls)
@@ -3363,8 +3675,10 @@ def main() -> int:
                         **({"at_shapes": t["at_shapes"]} if "at_shapes" in t else {}),
                         **({"at_families": at_families[name]} if at_families.get(name)
                            else {}),
+                        **({"at_configs": at_configs[name]} if at_configs.get(name)
+                           else {}),
                         **({"at_sim": at_sim[name]} if at_sim.get(name) else {})})
-    log(f"chip_smoke: phases 1-17 took {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-19 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

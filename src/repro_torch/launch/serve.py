@@ -10,9 +10,11 @@ On the card (``--device cuda``, the default) it serves the full-size config
 in bfloat16 through the port's kernels; with ``--device cpu`` it serves the
 smoke config in float32 through the kernels' plain versions, as the
 reference does on its CPU.  Run on the card so far: ``llama3.2-1b``,
-``rwkv6-3b``, ``zamba2-2.7b`` (its shared attention at head dim 80) and
+``rwkv6-3b``, ``zamba2-2.7b`` (its shared attention at head dim 80),
 ``llava-next-mistral-7b`` (its mistral-7b text backbone: the serving engine
-feeds no image prefix, as the reference's).  Refused before any weight is
+feeds no image prefix, as the reference's), ``granite-3-2b``,
+``granite-3-8b`` and ``starcoder2-15b`` (48 heads over 4, 43.4 GB of bf16
+weights).  Refused before any weight is
 made (:func:`refusal`): ``seamless-m4t-large-v2`` anywhere, since the
 serving engine feeds no audio frames to its encoder (nor does the
 reference's), and on the card a model whose bf16 weights exceed the card's

@@ -80,6 +80,14 @@ def attn_names(cfg: ModelConfig):
 
 
 def _init_unit(generator, cfg: ModelConfig, dtype, dev, n: int):
+    if n == 0:
+        # a segment of no units (an exit before the first unit, as a
+        # two-layer llama4-maverick's one unit gives segments [0, 1]): an
+        # empty stack.  ``stack=0`` would build one unstacked unit whose
+        # weights no forward reads, and whose leading axes the unit loop
+        # (the reference's scan) would take for the unit count
+        unit = _init_unit(None, cfg, dtype, torch.device("meta"), 1)
+        return _empty_stack(unit, dev)
     if cfg.num_experts and unit_size(cfg) == 2:
         return {"attn0": L.init_attn(generator, cfg, dtype, dev, stack=n),
                 "ffn": L.init_ffn(generator, cfg, dtype, dev, stack=n),
@@ -90,6 +98,12 @@ def _init_unit(generator, cfg: ModelConfig, dtype, dev, n: int):
                 "moe": MOE.init_moe(generator, cfg, dtype, dev, stack=n)}
     return {"attn": L.init_attn(generator, cfg, dtype, dev, stack=n),
             "ffn": L.init_ffn(generator, cfg, dtype, dev, stack=n)}
+
+
+def _empty_stack(unit, dev):
+    return {k: _empty_stack(v, dev) if isinstance(v, dict)
+            else torch.empty((0,) + v.shape[1:], dtype=v.dtype, device=dev)
+            for k, v in unit.items()}
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,

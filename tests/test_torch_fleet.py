@@ -169,9 +169,16 @@ def test_real_decode_fleet_equals_reference(reference_runs, port_serial,
     """Same summaries, token streams and arena/decode counters as the
     reference on the same parameters; the arena replaces the batched path
     and pads nothing, with one arena variant per model exit at most."""
-    ref_summary, ref_toks, ref_stats, params = reference_runs[strategy]
-    summary, toks, stats, _ = _port_run(_static_spec(strategy == "arena"),
-                                        params)
+    hold_against_reference(reference_runs[strategy], port_serial,
+                           _static_spec(strategy == "arena"), strategy)
+
+
+def hold_against_reference(reference_run, port_serial, spec, strategy):
+    """The port's run of ``spec`` (``strategy``: "arena" or "batched") on
+    the reference's parameters against the reference's run of it and the
+    port's serial run (see test_real_decode_fleet_equals_reference)."""
+    ref_summary, ref_toks, ref_stats, params = reference_run
+    summary, toks, stats, _ = _port_run(spec, params)
     assert json.dumps(summary, sort_keys=True) == \
         json.dumps(ref_summary, sort_keys=True)
     _held(ref_toks, toks, port_serial[3])
