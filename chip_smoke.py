@@ -195,7 +195,26 @@ order; any failure exits non-zero:
    backbone (whole; the fleet feeds no image prefix) and starcoder2-15b
    (whole in bf16, 20 layers in float32; its decode kernel checked and
    timed first at the arena's shape, G 12), serial and arena, over 1.5-2 s
-   horizons.
+   horizons;
+20. the substrate (after phase 19, before the profiler sessions): the
+   sharded steps of ``launch/steps.py`` on ``make_host_mesh()`` over the
+   card (NCCL, a world of one, mesh 1x1).  llama3.2-1b at full width and
+   depth in bf16: ``make_prefill_step`` at B4 S1024 through the flash
+   kernel, then 16 ``make_serve_step`` steps at each exit through the
+   decode-attention and exit-head kernels, every launch count zero before
+   and equal after to what the structure and the steps give; the same in
+   float32 against the mesh-less ``Model.prefill`` / ``decode_step``
+   (last hidden within HIDDEN_TOL, tokens equal unless the top-2 margin is
+   below MARGIN_TOL, bitwise equality logged); rwkv6-3b at full width in
+   bf16, a 12-token prefill step and 8 serve steps through the scan
+   kernel, each launch held against the plain scan; two llama3.2-1b
+   float32 train steps at B1 S2048, with and without ``seq_parallel``,
+   against the mesh-less step (loss and every parameter within 1e-5);
+   ``decode_step_batch(sharded=True)`` bit for bit ``sharded=False``;
+   ``PrefetchLoader(mesh=, spec=)``'s local shard equal to the host batch;
+   and the dry run of llama3.2-1b decode_32k on a fake 256-rank group as a
+   subprocess, with ``roofline.report`` on its record (analytic: shapes
+   and H100 constants, not measured).
 
 The line before the last is the JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
@@ -1133,15 +1152,18 @@ def patched(module, name, fn):
         setattr(module, name, old)
 
 
-def shadowed_scan(launch, worst):
+def shadowed_scan(launch, worst, widen=False):
     """``launch`` (the scan wrapper), with each call held against the plain
     version on the same inputs (see F32_UNIT); the worst shares of the
-    allowed error and the largest error go to ``worst``."""
+    allowed error and the largest error go to ``worst``.  ``widen``: the
+    plain version takes the inputs in float32 (a bf16 launch is then held
+    against an output that is not rounded to bf16 again)."""
     from repro_torch.kernels.ssm_scan import ref as ss_ref
 
     def scan(q, k, v, log_w, state, u=None):
         o, s = launch(q, k, v, log_w, state, u=u)
-        po, ps = ss_ref.ssm_scan(q, k, v, log_w, state, u=u)
+        w = (lambda t: t.float()) if widen else (lambda t: t)
+        po, ps = ss_ref.ssm_scan(w(q), w(k), w(v), log_w, state, u=u)
         mo, ms = ss_ref.ssm_scan(q.abs(), k.abs(), v.abs(), log_w, state.abs(),
                                  u=None if u is None else u.abs())
         S, dk = q.shape[1], q.shape[3]
@@ -2386,8 +2408,8 @@ def lm_train_phase(torch):
 
     # -- step walls, before any profiler session
     B, S = LM_TRAIN["batch"], LM_TRAIN["seq"] - 1
-    step = make_train_step(model, ShapeConfig("phase15", LM_TRAIN["seq"], B, "train"),
-                           device="cuda", remat=True, ce_chunk=512)
+    step, _ = make_train_step(model, None, ShapeConfig("phase15", LM_TRAIN["seq"], B, "train"),
+                              device="cuda", remat=True, ce_chunk=512)
     state = (out["params"], out["opt"])
     del out
     data = token_batches(1, B, LM_TRAIN["seq"], cfg.vocab_size)
@@ -2442,8 +2464,8 @@ def lm_train_profile(torch, walls):
                                dtype=torch.bfloat16, device="cuda")
     state = (params, adamw_init(params))
     del params
-    step = make_train_step(model, ShapeConfig("phase15", LM_TRAIN["seq"], B, "train"),
-                           device="cuda", remat=True, ce_chunk=512)
+    step, _ = make_train_step(model, None, ShapeConfig("phase15", LM_TRAIN["seq"], B, "train"),
+                              device="cuda", remat=True, ce_chunk=512)
     batch = {"tokens": torch.from_numpy(
         next(token_batches(1, B, LM_TRAIN["seq"], cfg.vocab_size))).cuda()}
     torch.cuda.synchronize()
@@ -3483,6 +3505,337 @@ def dense_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------- phase 20
+# the substrate on the card: the sharded steps of launch/steps.py on
+# make_host_mesh() over the one card (NCCL, a world of one, mesh 1x1)
+SUB_PREFILL = (1024, 4)            # llama3.2-1b prefill step: seq, batch
+SUB_STEPS = 16                     # serve steps at each exit
+SUB_DECODE_AT = 1008               # first decode position in the 1024 cache
+SUB_RWKV = (12, 8, 4)              # rwkv6-3b: prompt, steps, batch
+SUB_TRAIN_SEQ = 2049               # B1 S2048 train steps (the model sees 2048)
+SUB_TRAIN_TOL = 1e-5               # loss and every parameter, mesh against mesh-less
+SUB_TRAIN_KW = dict(peak_lr=1e-2, warmup=1, total_steps=10, remat=True)
+SUB_DRYRUN = ("llama3.2-1b", "decode_32k", "single")
+
+
+def substrate_counts(model, steps_at):
+    """The launches phase 20's llama3.2-1b steps must count: one flash
+    launch a layer in the prefill step; in a serve step at exit e one
+    decode launch a layer of segments [0, e] and one exit-head launch at
+    each exit passed before e."""
+    segs = model.segment_lengths()
+    dec = sum(steps_at[e] * sum(segs[:e + 1]) for e in steps_at)
+    heads = sum(steps_at[e] * e for e in steps_at)
+    return {"flash_attention": sum(segs), "decode_attention": dec,
+            "exit_confidence": heads}
+
+
+def substrate_llama(torch, mesh, dtype, params, dev="cuda"):
+    """The prefill step at SUB_PREFILL with the kernels, then SUB_STEPS
+    serve steps at every exit from its cache, greedy.  Returns (h, the
+    tokens of every exit, the counts of the serve steps by exit)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.api import Model
+
+    model = Model(get_config(LLAMA))
+    S, B = SUB_PREFILL
+    prefill, _ = make_prefill_step(model, mesh, ShapeConfig("p", S, B, "prefill"),
+                                   attn_impl="kernel")
+    batch = model.make_inputs(ShapeConfig("p", S, B, "prefill"),
+                              generator=torch.Generator(device=dev).manual_seed(20),
+                              device=dev)
+    h, cache = prefill(params, batch)
+    toks, shape = {}, ShapeConfig("d", S, B, "decode")
+    for e in range(model.num_segments):
+        step, _ = make_serve_step(model, mesh, shape, exit_point=e,
+                                  with_exit_confidence=True, use_exit_kernel=True)
+        c = _tree_clone(cache)
+        tok = batch["tokens"][:, SUB_DECODE_AT:SUB_DECODE_AT + 1]
+        out = []
+        for i in range(SUB_STEPS):
+            pos = torch.tensor(SUB_DECODE_AT + i, dtype=torch.int32, device=dev)
+            tok, c = step(params, c, {"tokens": tok, "pos": pos})
+            tok = _local(tok)
+            out.append(tok[:, 0].tolist())
+        toks[e] = out
+    return _local(h), toks, {e: SUB_STEPS for e in toks}, batch, cache
+
+
+def _local(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_clone(v) for v in tree)
+    return _local(tree).clone()
+
+
+def substrate_meshless(torch, params, batch, toks, dev="cuda"):
+    """The mesh-less path on phase 20's llama3.2-1b inputs: ``Model.prefill``
+    and, at every exit, ``decode_step`` fed the mesh path's tokens.  Returns
+    (h, tokens by exit, top-2 margins by exit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import Model
+
+    model = Model(get_config(LLAMA))
+    S, B = SUB_PREFILL
+    cache = model.init_cache(B, S, device=dev)
+    h, cache = model.prefill(params, batch["tokens"], cache, impl="kernel")
+    want, margins = {}, {}
+    for e, steps in toks.items():
+        c = _tree_clone(cache)
+        tok = batch["tokens"][:, SUB_DECODE_AT:SUB_DECODE_AT + 1]
+        out, mar = [], []
+        for i in range(SUB_STEPS):
+            hh, c, _ = model.decode_step(params, c, tok, SUB_DECODE_AT + i, exit_point=e,
+                                         with_exit_confidence=True, impl="kernel")
+            logits = model.logits(params, hh)[:, -1].float()
+            top2 = logits.topk(2, dim=-1).values
+            out.append(logits.argmax(-1).tolist())
+            mar.append((top2[:, 0] - top2[:, 1]).tolist())
+            tok = torch.tensor(steps[i], dtype=batch["tokens"].dtype, device=dev)[:, None]
+        want[e], margins[e] = out, mar
+    return h, want, margins
+
+
+def substrate_phase(torch, dev="cuda"):
+    """Phase 20: the multi-device substrate on the card.  Returns the
+    launches of its main-path runs by kernel."""
+    import shutil
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PrefetchLoader
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.models.api import Model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.serving.engine import CoInferenceStepper
+    from repro_torch.spmd import is_dtensor
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(device=dev)
+    log(f"phase 20: mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)} over a world of "
+        f"{dist.get_world_size()} on {dist.get_backend()}")
+    totals = {}
+    model = Model(get_config(LLAMA))
+
+    # -- llama3.2-1b prefill + serve at full width and depth, bf16, counted
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.bfloat16, device=dev)
+    reset_launch_counts()
+    require(not any(launch_counts().values()), "phase 20: counters not zero")
+    h, toks, steps_at, _, _ = substrate_llama(torch, mesh, torch.bfloat16, params, dev)
+    got = launch_counts()
+    want = substrate_counts(model, steps_at)
+    for name, n in want.items():
+        require(got[name] == n, f"phase 20: {name} launched {got[name]} times, the "
+                                f"structure and the steps give {n}")
+    require(bool(torch.isfinite(h.float()).all()), "phase 20: bf16 hidden not finite")
+    for k, n in want.items():
+        totals[k] = totals.get(k, 0) + n
+    log(f"phase 20: llama3.2-1b bf16 prefill step B{SUB_PREFILL[1]} S{SUB_PREFILL[0]} "
+        f"(flash kernel) and {SUB_STEPS} serve steps at each of {len(toks)} exits (decode "
+        f"and exit-head kernels) on the mesh: launches {want}, each as the structure gives; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, h
+    torch.cuda.empty_cache() if dev == "cuda" else None
+
+    # -- the same in f32 against the mesh-less path
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.float32, device=dev)
+    h, toks, _, batch, _ = substrate_llama(torch, mesh, torch.float32, params, dev)
+    h0, want_toks, margins = substrate_meshless(torch, params, batch, toks, dev)
+    err = (h.float() - h0.float()).abs().max().item()
+    require(err <= HIDDEN_TOL, f"phase 20: f32 prefill hidden {err:.3e} > {HIDDEN_TOL}")
+    flips, same = [], True
+    for e in toks:
+        for i, (a, b, m) in enumerate(zip(toks[e], want_toks[e], margins[e])):
+            for r, (x, y, mm) in enumerate(zip(a, b, m)):
+                if x != y:
+                    same = False
+                    require(mm < MARGIN_TOL, f"phase 20: exit {e} step {i} row {r}: token "
+                                             f"{x} against {y} at margin {mm:.3e}")
+                    flips.append((e, i, r, mm))
+    log(f"phase 20: f32 mesh against mesh-less: last hidden max |diff| {err:.3e} "
+        f"(bitwise equal: {bool(torch.equal(h, h0))}); tokens at every exit "
+        f"{'equal' if same else f'equal but at {flips} (margins under {MARGIN_TOL})'}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, h, h0
+    torch.cuda.empty_cache() if dev == "cuda" else None
+
+    # -- rwkv6-3b at full width, bf16: the scan kernel under the mesh, each
+    #    launch held against its plain version
+    t0 = time.perf_counter()
+    rmodel = Model(get_config(RWKV))
+    rparams = rmodel.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 dtype=torch.bfloat16, device=dev)
+    S, n_steps, B = SUB_RWKV
+    worst = {"calls": 0, "o": 0.0, "state": 0.0, "err": 0.0}
+    ss_ops_launch = ss_ops.ssm_scan
+    # each local launch against the plain scan on the same inputs taken to
+    # float32, so the plain output is not rounded to bf16 a second time
+    held = shadowed_scan(lambda q, k, v, lw, st, u=None: ss_ops_launch(q, k, v, lw, st, u=u),
+                         worst, widen=True)
+
+    def local_held(*a, **k):            # hold the local launches only
+        return ss_ops_launch(*a, **k) if is_dtensor(a[0]) else held(*a, **k)
+
+    reset_launch_counts()
+    with patched(ss_ops, "ssm_scan", local_held):
+        pre, _ = make_prefill_step(rmodel, mesh, ShapeConfig("p", S, B, "prefill"),
+                                   use_kernel=True)
+        rb = rmodel.make_inputs(ShapeConfig("p", S, B, "prefill"),
+                                generator=torch.Generator(device=dev).manual_seed(21),
+                                device=dev)
+        h, cache = pre(rparams, rb)
+        serve, _ = make_serve_step(rmodel, mesh, ShapeConfig("d", S, B, "decode"),
+                                   use_kernel=True)
+        tok = rb["tokens"][:, -1:]
+        for i in range(n_steps):
+            pos = torch.tensor(S + i, dtype=torch.int32, device=dev)
+            tok, cache = serve(rparams, cache, {"tokens": _local(tok), "pos": pos})
+    got = launch_counts()
+    n_layers = rmodel.cfg.num_layers
+    want_scan = n_layers * (1 + n_steps)
+    require(got["ssm_scan"] == want_scan and worst["calls"] == want_scan,
+            f"phase 20: rwkv6-3b scan launches {got['ssm_scan']} (held {worst['calls']}), "
+            f"want {want_scan}")
+    require(worst["o"] <= 1.0 and worst["state"] <= 1.0,
+            f"phase 20: rwkv6-3b scan off its plain version: {worst}")
+    totals["ssm_scan"] = totals.get("ssm_scan", 0) + want_scan
+    log(f"phase 20: rwkv6-3b bf16 on the mesh: {S}-token prefill step and {n_steps} serve "
+        f"steps, B{B}: {want_scan} scan launches ({ {k: got[k] for k in got if k.startswith('ssm')} }), "
+        f"each held against the plain scan: worst share of the tolerance output "
+        f"{worst['o']:.3e}, state {worst['state']:.3e}, max |err| {worst['err']:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del rparams, cache, h
+    torch.cuda.empty_cache() if dev == "cuda" else None
+
+    # -- training, llama3.2-1b f32 B1 S2048: mesh against mesh-less
+    t0 = time.perf_counter()
+    shape = ShapeConfig("t", SUB_TRAIN_SEQ - 1, 1, "train")
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.float32, device=dev)
+    tb = model.make_inputs(shape, generator=torch.Generator(device=dev).manual_seed(22),
+                           device=dev)
+    plain, _ = make_train_step(model, None, shape, device=dev, **SUB_TRAIN_KW)
+
+    def timed(step):
+        """The step's outputs and the wall of its second call (the first
+        warms the allocator and, on a mesh, DTensor's sharding cache)."""
+        step(params, adamw_init(params), tb)
+        sync()
+        t1 = time.perf_counter()
+        out = step(params, adamw_init(params), tb)
+        sync()
+        return out, time.perf_counter() - t1
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    (p0, _, m0), wall0 = timed(plain)
+    want_p = [x.detach() for x in T.leaves(p0)]
+    del p0
+    log(f"phase 20: the mesh-less f32 train step B1 S{SUB_TRAIN_SEQ - 1}: wall {wall0:.3f} s")
+    walls = {}
+    for sp in (False, True):
+        step, _ = make_train_step(model, mesh, shape, seq_parallel=sp, **SUB_TRAIN_KW)
+        (p1, _, m1), walls[sp] = timed(step)
+        dl = abs(float(m1["loss"]) - float(m0["loss"]))
+        require(dl <= SUB_TRAIN_TOL, f"phase 20: seq_parallel={sp} loss {dl:.3e} off")
+        worst_p = max((_local(a).float() - b.float()).abs().max().item()
+                      for a, b in zip(T.leaves(p1), want_p))
+        require(worst_p <= SUB_TRAIN_TOL,
+                f"phase 20: seq_parallel={sp} params {worst_p:.3e} off the mesh-less step")
+        log(f"phase 20: llama3.2-1b f32 train step B1 S{SUB_TRAIN_SEQ - 1} on the mesh, "
+            f"seq_parallel={sp}: loss {float(m1['loss']):.6f} (|diff| {dl:.3e} from the "
+            f"mesh-less step), worst parameter |diff| {worst_p:.3e}; wall {walls[sp]:.3f} s, "
+            f"{walls[sp] / wall0:.3f} of the mesh-less step's")
+        del p1
+        torch.cuda.empty_cache() if dev == "cuda" else None
+    del params, want_p
+    log(f"phase 20: training holds took {time.perf_counter() - t0:.1f} s")
+
+    # -- sharded batched decode on the world of one: the plain variant
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    items = []
+    for _ in range(4):
+        tokens = torch.randint(0, model.cfg.vocab_size, (1, 12), generator=gen, device=dev)
+        cache = model.init_cache(1, 32, device=dev)
+        hh, cache = model.prefill(params, tokens, cache)
+        items.append((None, cache, model.logits(params, hh)[:, -1].argmax(-1, keepdim=True), 12))
+    graph = types.SimpleNamespace(num_exits=model.num_segments)
+    outs = {}
+    for sharded in (False, True):
+        stepper = CoInferenceStepper(model, graph, None)
+        outs[sharded] = stepper.decode_step_batch(params, items, sharded=sharded)
+    bits = all(torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(
+        _leaves(a[1]), _leaves(b[1]))) for a, b in zip(outs[False], outs[True]))
+    require(bits, "phase 20: decode_step_batch(sharded=True) differs from sharded=False")
+    log(f"phase 20: decode_step_batch(sharded=True) over 4 rows on the world of one: bit for "
+        f"bit sharded=False; {time.perf_counter() - t0:.1f} s")
+    del params, items, outs
+
+    # -- PrefetchLoader on the mesh
+    host = [{"tokens": np.arange(4 * 9, dtype=np.int32).reshape(4, 9) + i} for i in range(2)]
+    loader = PrefetchLoader(iter(host), mesh=mesh, spec=T.P(("data",), None))
+    for want_b in host:
+        b = next(loader)["tokens"]
+        require(is_dtensor(b) and torch.equal(b.to_local().cpu(),
+                                              torch.from_numpy(want_b["tokens"])),
+                "phase 20: PrefetchLoader's local shard differs from the host batch")
+    loader.close()
+    log(f"phase 20: PrefetchLoader(mesh, P(('data',), None)) placed {len(host)} batches as "
+        f"DTensors {tuple(b.placements)} on {b.to_local().device}, local shards equal to the "
+        f"host batches")
+
+    # -- the dry run on a fake 256-rank group, then its roofline
+    out_dir = ROOT / "build" / "phase20"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    arch, shp, msh = SUB_DRYRUN
+    t0 = time.perf_counter()
+    env = dict(__import__("os").environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shp, "--mesh", msh, "--out", str(out_dir / "dryrun.json")],
+                         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=600)
+    wall_dry = time.perf_counter() - t0
+    require(res.returncode == 0, f"phase 20: dry run failed: {res.stderr[-2000:]}")
+    rec = json.loads((out_dir / "dryrun.json").read_text())[f"{arch}|{shp}|{msh}"]
+    require(rec.get("status") == "ok" and rec["flops"] > 0
+            and rec["collectives"]["total_link_bytes"] > 0,
+            f"phase 20: dry-run record {str(rec)[:500]}")
+    t0 = time.perf_counter()
+    table = roofline.report(out_dir / "dryrun.json", msh)
+    wall_roof = time.perf_counter() - t0
+    log(f"phase 20: dry run {arch} {shp} on a fake {rec['mesh']} group ({rec['chips']} ranks), "
+        f"wall {wall_dry:.1f} s (step {rec['step_s']:.2f} s); ANALYTIC, from shapes and H100 "
+        f"constants, not measured: {json.dumps({k: rec[k] for k in ('flops', 'bytes_walked', 'bytes_literal', 'analytic_state_bytes_per_chip')})}, "
+        f"collectives {json.dumps(rec['collectives'])}, memory {json.dumps(rec['memory'])}")
+    log(f"phase 20: roofline.report ({wall_roof * 1e3:.1f} ms), ANALYTIC (H100 constants, "
+        f"not measured):\n{table}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    dist.destroy_process_group()
+    log(f"phase 20: took {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -3641,6 +3994,15 @@ def main() -> int:
         for label, t in at_configs.get(name, {}).items():
             t["launches"] = per_config.get(label.split()[0], 0)
 
+    # -- 20 the substrate: sharded steps on make_host_mesh() over the card,
+    #    the dry run and its roofline; before any profiler session
+    gc.collect()
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    for name, n in substrate_phase(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"chip_smoke: phase 20 took {time.perf_counter() - t20:.1f} s")
+
     arena_profile(torch, (LLAMA, ZAMBA))
     t_prof = time.perf_counter()
     lm_train_profile(torch, lm_walls)
@@ -3678,7 +4040,7 @@ def main() -> int:
                         **({"at_configs": at_configs[name]} if at_configs.get(name)
                            else {}),
                         **({"at_sim": at_sim[name]} if at_sim.get(name) else {})})
-    log(f"chip_smoke: phases 1-19 took {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-20 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,11 +10,19 @@ chunks in the same launch: each call launches once and adds one to
 stream) zeroed once, at first use (:func:`_tickets`), and every call leaves
 them zero.  The kernel has no backward: under grad mode the wrapper refuses
 inputs that require grad, on the CPU too (:func:`build.refuse_autograd`).
+
+On DTensors (a sharded step) the kernel runs inside ``local_map`` on local
+shards: the rows (batch and sequence) stay split, the hidden width and the
+embedding's vocab and width are redistributed to ``Replicate`` first (the
+vocab merge and the dot products span them).
 """
 from __future__ import annotations
 
 import torch
 
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch import spmd
 from repro_torch.kernels import build
 from repro_torch.kernels.exit_head import ref
 
@@ -64,6 +72,8 @@ def exit_confidence(h, emb):
     Returns dict(token [B,S] i32, conf [B,S] f32, entropy [B,S] f32) — the
     contract of :func:`repro_torch.kernels.exit_head.ref.exit_confidence`."""
     build.refuse_autograd("exit_confidence", h, emb)
+    if spmd.is_dtensor(h) or spmd.is_dtensor(emb):
+        return _on_mesh(h, emb)
     if h.device.type == "cpu":
         return ref.exit_confidence(h, emb)
     build.require_cuda(h, emb)
@@ -94,3 +104,21 @@ def exit_confidence(h, emb):
     LAUNCHES["exit_confidence"] += 1
     return {"token": tok.reshape(B, S), "conf": out[1].reshape(B, S),
             "entropy": out[2].reshape(B, S)}
+
+
+def _on_mesh(h, emb):
+    """:func:`exit_confidence` on the local rows of a DTensor ``h`` with the
+    whole embedding on every rank, through ``local_map``."""
+    if not spmd.is_dtensor(h):
+        h = spmd.follow(h, emb, {})
+    h = spmd.keep_sharded(h, (0, 1))
+    emb = spmd.follow(emb, h, {})
+
+    def local(hl, el):
+        out = exit_confidence(hl, el)
+        return out["token"], out["conf"], out["entropy"]
+
+    tok, conf, ent = local_map(local, out_placements=(h.placements,) * 3,
+                               in_placements=(h.placements, emb.placements),
+                               device_mesh=h.device_mesh)(h, emb)
+    return {"token": tok, "conf": conf, "entropy": ent}

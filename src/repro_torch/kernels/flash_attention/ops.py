@@ -12,6 +12,12 @@ raises: there is no fallback.  Each launch adds one to :data:`LAUNCHES`.
 Neither has a backward: under grad mode both refuse inputs that require
 grad, on the CPU too (:func:`build.refuse_autograd`).
 
+On DTensors (a sharded step) each wrapper runs its kernel inside
+``local_map`` on local shards: the batch rows and whole heads stay split,
+every other sharded dim (the cache's sequence axis, the head dim) is
+redistributed to ``Replicate`` first, and a rank's query heads meet their
+own key heads under GQA (:func:`repro_torch.spmd.gqa_operands`).
+
 Head dims are :data:`HEAD_DIMS`; both kernels are instantiated for each
 (64 and 128 for the dense models, 80 for zamba2's shared attention, 16 for
 the smoke configs the simulator builds and 32 for the reference's own
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
@@ -59,9 +66,19 @@ def _tickets(device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
+def _dense(t):
+    """A local shard as the kernels take it: a CUDA shard cut from a
+    replicated tensor (a rank's key heads) is made contiguous."""
+    return t.contiguous() if t.device.type == "cuda" else t
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: [B, S, H, hd]; k/v: [B, T, KV, hd] -> [B, S, H, hd] (q's dtype)."""
     build.refuse_autograd("flash_attention", q, k, v)
+    if any(spmd.is_dtensor(t) for t in (q, k, v)):
+        return spmd.local_attention(
+            lambda ql, kl, vl: flash_attention(_dense(ql), _dense(kl), _dense(vl),
+                                               causal=causal), q, k, v)
     if q.device.type == "cpu":
         return ref.attention(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal).transpose(1, 2)
@@ -93,6 +110,9 @@ def decode_attention(q, k, v, lengths):
     [B, 1, H, hd].  Row ``b`` attends over its first ``lengths[b]`` keys; a
     zero-length row returns zeros."""
     build.refuse_autograd("decode_attention", q, k, v)
+    if any(spmd.is_dtensor(t) for t in (q, k, v)):
+        return spmd.local_attention(
+            lambda ql, kl, vl, ln: decode_attention(_dense(ql), kl, vl, ln), q, k, v, lengths)
     B, S, H, hd = q.shape
     build.require(S == 1, f"decode attention is single-query: got S={S}")
     if q.device.type == "cpu":
@@ -129,3 +149,4 @@ def decode_attention(q, k, v, lengths):
         build.dtype_code(q), stream), "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return o
+

@@ -24,6 +24,12 @@ fallback, and a launch that fails is never retried on the other kernel.
   short prompts and other widths.  It reads q, k, v and log_w through their
   strides, stride-0 broadcasts in place, without copies.
 
+On DTensors (a sharded step) the kernel runs inside ``local_map`` on local
+shards: batch rows and whole heads stay split, and every other sharded dim
+is redistributed to ``Replicate`` first (the sequence the scan runs along,
+and the key channels its state contracts, which RWKV-6's cache shards over
+``model``); the final state comes back with q's batch and head splits.
+
 Each launch adds one to ``LAUNCHES["ssm_scan"]`` and one to the count of
 its kernel, ``LAUNCHES["ssm_scan.chunked"]`` or ``["ssm_scan.stepped"]``.
 Neither kernel has a backward: under grad mode the wrapper refuses inputs
@@ -33,6 +39,9 @@ from __future__ import annotations
 
 import torch
 
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch import spmd
 from repro_torch.kernels import build
 from repro_torch.kernels.ssm_scan import ref
 
@@ -95,6 +104,8 @@ def ssm_scan(q, k, v, log_w, state, u=None):
     """Returns (o [B,S,H,dv] in v's dtype, final state [B,H,dk,dv] f32);
     see :func:`repro_torch.kernels.ssm_scan.ref.ssm_scan`."""
     build.refuse_autograd("ssm_scan", q, k, v, log_w, state, u)
+    if any(spmd.is_dtensor(t) for t in (q, k, v, log_w, state, u)):
+        return _on_mesh(q, k, v, log_w, state, u)
     if q.device.type == "cpu":
         return ref.ssm_scan(q, k, v, log_w, state, u=u)
     build.require_cuda(q, k, v, log_w, state, *(() if u is None else (u,)))
@@ -129,3 +140,24 @@ def ssm_scan(q, k, v, log_w, state, u=None):
     LAUNCHES["ssm_scan"] += 1
     LAUNCHES[f"ssm_scan.{kind}"] += 1
     return o, s_out
+
+
+def _on_mesh(q, k, v, log_w, state, u):
+    """:func:`ssm_scan` on local shards through ``local_map``: q keeps its
+    batch and head splits, and k, v, log_w, the state and u follow them."""
+    if not spmd.is_dtensor(q):
+        ref_dt = next(t for t in (k, v, log_w, state, u) if spmd.is_dtensor(t))
+        q = spmd.follow(q, ref_dt, {})
+    q = spmd.keep_sharded(q, (0, 2))
+    k, v, log_w = (spmd.follow(t, q, {0: 0, 2: 2}) for t in (k, v, log_w))
+    state = spmd.follow(state, q, {0: 0, 2: 1})
+    args = [q, k, v, log_w, state]
+    if u is not None:
+        args.append(spmd.follow(u, q, {2: 0}))
+
+    def local(*a):
+        return ssm_scan(*a[:5], u=a[5] if len(a) > 5 else None)
+
+    return local_map(local, out_placements=(q.placements, state.placements),
+                     in_placements=tuple(t.placements for t in args),
+                     device_mesh=q.device_mesh)(*args)

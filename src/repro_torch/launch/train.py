@@ -1,15 +1,22 @@
 """Training driver: ``python -m repro_torch.launch.train --arch <id>
 [--smoke | --full] [--device cuda]`` (the counterpart of
-``src/repro/launch/train.py`` on one device).
+``src/repro/launch/train.py``).
 
-``--smoke`` (the default) trains the reduced config in float32; ``--full``
-the full one in bfloat16 with float32 moments.  Either runs the whole
-stack: the train step (joint multi-exit loss, flash attention with its
-flash backward past 1024² scores, per-unit recompute, chunked CE, AdamW),
-checkpoint/restart with auto-resume, and failure injection for drills.
-On the card:
-
-    python -m repro_torch.launch.train --full --arch llama3.2-1b --seq 2049 --batch 4 --steps 6
+The step runs sharded on :func:`repro_torch.launch.mesh.make_host_mesh`,
+the ``(data, model)`` mesh over the world of the default process group (a
+world of one process when none is running: NCCL on the card, gloo for
+``--device cpu``).  ``--smoke`` (the default) trains the reduced config in
+float32 on it.  ``--full``, as the reference's, trains the full config in
+bfloat16 with float32 moments on the production mesh (16×16 over 256
+ranks), which one card cannot hold: it raises on any other world, and no
+smaller mesh is built in its place.  :func:`train` with ``smoke=False``
+trains the full config on the host mesh (``chip_smoke.py``'s phase 15 runs
+llama3.2-1b so on one card).  Either runs the whole stack: the train step
+(joint multi-exit loss, flash attention with its flash backward past
+1024² scores, per-unit recompute, chunked CE, AdamW), checkpoint/restart
+with auto-resume, and failure injection for drills.  The state is kept
+whole between steps (a sharded step's outputs are gathered), as the
+reference's checkpoint manager gathers it to the host.
 """
 from __future__ import annotations
 
@@ -25,7 +32,9 @@ from repro_torch.config import ShapeConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.synthetic import token_batches
 from repro_torch.device import resolve
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.steps import make_train_step
+from repro_torch import tree as T
 from repro_torch.models.api import Model
 from repro_torch.models.encdec import AUDIO_DIM
 from repro_torch.models.transformer import VIS_DIM
@@ -34,6 +43,10 @@ from repro_torch.runtime.fault_tolerance import FailureInjector, ResilientLoop
 
 #: checkpoints go under the checkout's build directory unless told otherwise
 DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_ckpt"
+
+
+def _whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 def train_batch(cfg, tokens, step: int, seq: int, device):
@@ -57,18 +70,25 @@ def train_batch(cfg, tokens, step: int, seq: int, device):
 
 def train(arch="llama3.2-1b", *, smoke=True, steps=200, batch=8, seq=64,
           ckpt_dir=DEFAULT_CKPT_DIR, save_every=50, inject_failure_at=None,
-          device="cuda"):
+          device="cuda", production_mesh=False):
     """Train ``arch`` for ``steps`` steps on batches of ``batch`` sequences
-    of ``seq`` tokens (the model sees ``seq - 1``).  Returns ``{"params",
-    "opt", "losses", "info", "seconds"}``: the final state, the loss of
-    every step run (replays included), the loop's restarts and final step,
-    and the loop's wall time."""
+    of ``seq`` tokens (the model sees ``seq - 1``) on the host mesh, or on
+    the production mesh with ``production_mesh`` (``--full``; it raises
+    off a world of 256).  Returns ``{"params", "opt", "losses", "info",
+    "seconds"}``: the final state (whole tensors), the loss of every step
+    run (replays included), the loop's restarts and final step, and the
+    loop's wall time."""
     dev = resolve(device)
+    mesh = (make_production_mesh(device=dev) if production_mesh
+            else make_host_mesh(device=dev))
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = Model(cfg)
     shape = ShapeConfig("cli", seq, batch, "train")
-    step = make_train_step(model, shape, device=dev, remat=True,
-                           ce_chunk=min(512, seq))
+    sharded, _ = make_train_step(model, mesh, shape, remat=True, ce_chunk=min(512, seq))
+
+    def step(params, opt, batch):
+        params, opt, metrics = sharded(params, opt, batch)
+        return T.tree_map(_whole, params), T.tree_map(_whole, opt), metrics
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                dtype=torch.float32 if smoke else torch.bfloat16,
                                device=dev)
@@ -112,7 +132,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     out = train(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
                 seq=args.seq, ckpt_dir=args.ckpt_dir, save_every=args.save_every,
-                inject_failure_at=args.inject_failure_at, device=args.device)
+                inject_failure_at=args.inject_failure_at, device=args.device,
+                production_mesh=not args.smoke)
     losses, dt = out["losses"], out["seconds"]
     print(f"done: {args.steps} steps in {dt:.1f}s "
           f"({args.steps * args.batch * args.seq / dt:.0f} tok/s), "

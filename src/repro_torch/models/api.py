@@ -2,8 +2,9 @@
 
 ``Model(cfg)`` dispatches to the family stack (``ssm_stack`` for the ssm
 and hybrid families, ``encdec`` for the encoder-decoder, ``transformer``
-for the dense, MoE and VLM families) and exposes ``init_params / loss /
-init_cache / prefill / decode_step / logits / forward``.  The enc-dec takes
+for the dense, MoE and VLM families) and exposes ``init_params /
+abstract_params / param_specs / loss / init_cache / cache_specs / prefill /
+decode_step / logits / forward / make_inputs``.  The enc-dec takes
 ``frames`` and the VLM ``prefix_emb`` where the reference's do.
 """
 from __future__ import annotations
@@ -13,9 +14,13 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import ModelConfig
+from repro_torch import spmd
+from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import encdec, ssm_stack, transformer
+from repro_torch.models.encdec import AUDIO_DIM
+from repro_torch.models.transformer import VIS_DIM
 
 
 EXIT_LOSS_WEIGHT = 0.3  # BranchyNet-style joint loss: side exits weighted
@@ -24,7 +29,7 @@ EXIT_LOSS_WEIGHT = 0.3  # BranchyNet-style joint loss: side exits weighted
 def _ce(h, lab, embed_table):
     logits = torch.einsum("bsd,vd->bsv", h, embed_table).float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+    ll = spmd.pick(logits, lab)
     return lse - ll
 
 
@@ -79,6 +84,14 @@ class Model:
                     dtype=torch.bfloat16, device="cuda"):
         return self.stack.init_params(self.cfg, generator, dtype, device)
 
+    def abstract_params(self, dtype=torch.bfloat16):
+        """The parameters' shapes and dtypes as ``meta`` tensors (the
+        reference's ``jax.eval_shape`` of ``init_params``): no memory."""
+        return self.stack.init_params(self.cfg, torch.Generator(), dtype, "meta")
+
+    def param_specs(self):
+        return self.stack.param_specs(self.cfg)
+
     def segment_lengths(self):
         return self.stack.segment_lengths(self.cfg)
 
@@ -88,7 +101,7 @@ class Model:
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch, *, remat=True, attn_impl="auto", scan_chunk=16,
-             ce_chunk=512, moe_dispatch="einsum"):
+             ce_chunk=512, moe_dispatch="einsum", seq_parallel=False):
         """Joint multi-exit next-token CE (BranchyNet): each side exit
         weighted EXIT_LOSS_WEIGHT, the final exit 1, normalised, plus 0.01 of
         the stack's auxiliary loss (the MoE's load balance).  batch:
@@ -97,7 +110,9 @@ class Model:
         hidden rows (the prefix) are dropped before the CE.  Returns (loss,
         metrics).  ``ce_chunk`` is the CE's slice: the reference's
         ``Model.loss`` takes ``softmax_xent``'s default of 512, which its
-        ``make_train_step`` accepts as ``ce_chunk`` and does not pass on."""
+        ``make_train_step`` accepts as ``ce_chunk`` and does not pass on.
+        ``seq_parallel`` (dense, MoE and VLM stacks, on DTensors) is
+        :func:`repro_torch.models.transformer._seq_shard` between blocks."""
         cfg = self.cfg
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
@@ -109,7 +124,8 @@ class Model:
         else:
             outs, aux = transformer.forward(cfg, params, inputs,
                                             prefix_emb=batch.get("prefix_emb"),
-                                            moe_dispatch=moe_dispatch, **kw)
+                                            moe_dispatch=moe_dispatch,
+                                            seq_parallel=seq_parallel, **kw)
         P = cfg.num_prefix_tokens if (cfg.frontend == "vision"
                                       and batch.get("prefix_emb") is not None) else 0
         losses = []
@@ -158,6 +174,11 @@ class Model:
             return transformer.init_cache(cfg, batch, max_seq, dtype, device, quant=quant)
         return ssm_stack.init_cache(cfg, batch, max_seq, dtype, device)
 
+    def cache_specs(self, batch_axes="data", seq_axes="model", quant=False):
+        if quant and self.stack is transformer:
+            return transformer.cache_specs(self.cfg, batch_axes, seq_axes, quant=True)
+        return self.stack.cache_specs(self.cfg, batch_axes, seq_axes)
+
     def prefill(self, params, tokens, cache, *, frames=None, prefix_emb=None,
                 impl="kernel", moe_dispatch="einsum"):
         cfg = self.cfg
@@ -189,3 +210,42 @@ class Model:
 
     def logits(self, params, hidden):
         return L.logits(params["embed"], hidden)
+
+    # ------------------------------------------------------------------ inputs
+    def make_inputs(self, shape: ShapeConfig, *, abstract=False,
+                    generator: Optional[torch.Generator] = None, device="cuda"):
+        """The batch of a shape cell, as the reference's: int32 tokens
+        uniform over the vocab, bf16 standard-normal frames (enc-dec) and
+        prefix (VLM), and for decode one token per row with ``pos`` the
+        scalar int32 ``seq_len - 1``.  ``abstract``: ``meta`` tensors (the
+        dry run's inputs, no memory); otherwise drawn from ``generator``
+        (a :class:`torch.Generator` on ``device``, seed 0 when None)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        dev = torch.device("meta") if abstract else resolve(device)
+        if generator is None and not abstract:
+            generator = torch.Generator(device=dev).manual_seed(0)
+
+        def arr(shp, dtype):
+            if abstract:
+                return torch.empty(shp, dtype=dtype, device=dev)
+            if dtype == torch.int32:
+                return torch.randint(0, cfg.vocab_size, shp, generator=generator,
+                                     dtype=torch.int32, device=dev)
+            return torch.randn(shp, generator=generator, dtype=torch.float32,
+                               device=dev).to(dtype)
+
+        if shape.kind in ("train", "prefill"):
+            extra = 1 if shape.kind == "train" else 0
+            if cfg.is_encdec:
+                return {"tokens": arr((B, S + extra), torch.int32),
+                        "frames": arr((B, S, AUDIO_DIM), torch.bfloat16)}
+            if cfg.frontend == "vision":
+                P = cfg.num_prefix_tokens
+                return {"tokens": arr((B, S - P + extra), torch.int32),
+                        "prefix_emb": arr((B, P, VIS_DIM), torch.bfloat16)}
+            return {"tokens": arr((B, S + extra), torch.int32)}
+        # decode: one new token against a seq_len cache
+        pos = (torch.empty((), dtype=torch.int32, device=dev) if abstract
+               else torch.tensor(S - 1, dtype=torch.int32, device=dev))
+        return {"tokens": arr((B, 1), torch.int32), "pos": pos}

@@ -27,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _units
+from repro_torch.models.transformer import _attn_shard_flags, _units
+from repro_torch.tree import P
 
 AUDIO_DIM = 1024  # stub frontend embedding width (== d_model for seamless)
 
@@ -77,6 +78,28 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["exit_norms"] = torch.ones((len(segs) - 1, cfg.d_model),
                                           dtype=dtype, device=dev)
     return params
+
+
+def _dec_spec(cfg):
+    qs, ks = _attn_shard_flags(cfg)
+    sa = L.spec_attn(True, q_shard=qs, kv_shard=ks)
+    return {"attn": sa, "xattn": sa, "ffn": L.spec_ffn(True)}
+
+
+def param_specs(cfg: ModelConfig):
+    segs = segment_lengths(cfg)
+    specs = {
+        "embed": L.spec_embed(),
+        "audio_proj": P(None, "data"),
+        "encoder": {"attn": L.spec_attn(True, *_attn_shard_flags(cfg)),
+                    "ffn": L.spec_ffn(True)},
+        "enc_norm": P(None),
+        "segments": tuple(_dec_spec(cfg) for _ in segs),
+        "final_norm": P(None),
+    }
+    if cfg.num_exits:
+        specs["exit_norms"] = P(None, None)
+    return specs
 
 
 # ----------------------------------------------------------------------------
@@ -184,6 +207,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_len: int,
             cache[key].append(torch.zeros((n, batch, enc_len, kvh, hd), dtype=dtype,
                                           device=dev))
     return {k: tuple(v) for k, v in cache.items()}
+
+
+def cache_specs(cfg: ModelConfig, batch_axes, seq_axes="model"):
+    self_spec = P(None, batch_axes, seq_axes, None, None)
+    segs = segment_lengths(cfg)
+    return {
+        "self": tuple({"k": self_spec, "v": self_spec} for _ in segs),
+        "cross_k": tuple(self_spec for _ in segs),
+        "cross_v": tuple(self_spec for _ in segs),
+    }
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, frames, *, impl="kernel"):

@@ -16,6 +16,11 @@ PyTorch with a backward: ``"dense"`` (its masked dense ``_sdpa``),
 ``"auto"`` (``"flash"`` when S·T > 1024², ``"dense"`` otherwise).  A cached
 decode takes the decode kernel for ``"kernel"`` and ``_sdpa`` for every
 other choice, as the reference.
+
+On DTensors (a sharded step, ``launch/steps.py``) DTensor's sharding
+propagation lays out the projections and norms; the attention cores, the
+embedding lookup and the cache writes run on local shards with explicit
+redistributions (:mod:`repro_torch.spmd`).
 """
 from __future__ import annotations
 
@@ -23,8 +28,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config import ModelConfig
+from repro_torch import spmd
+from repro_torch.tree import P
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
@@ -85,6 +93,23 @@ def init_attn(generator, cfg: ModelConfig, dtype, device, stack: int = 0):
         "wv": mk((d, kv * hd), d),
         "wo": mk((hp * hd, d), hp * hd),
         "ln": torch.ones(pre + (d,), dtype=dtype, device=device),
+    }
+
+
+def spec_attn(stack: bool = False, q_shard: bool = True, kv_shard: bool = True):
+    """Sharding of the attention projections (the reference's): ``q_shard``
+    / ``kv_shard`` must be False when the padded query / key head count
+    does not divide the 16-way ``model`` axis, so that no head is split
+    across ranks.  Replicated K/V is cheap under GQA."""
+    pre = (None,) if stack else ()
+    qs = P(*pre, "data", "model") if q_shard else P(*pre, "data", None)
+    kvs = P(*pre, "data", "model") if kv_shard else P(*pre, "data", None)
+    return {
+        "wq": qs,
+        "wk": kvs,
+        "wv": kvs,
+        "wo": P(*pre, "model", "data") if q_shard else P(*pre, None, "data"),
+        "ln": P(*pre, None),
     }
 
 
@@ -150,6 +175,8 @@ def _write_cache(buf, val, cache_pos, mask=None):
     leaf [B, T, KV, hd] (int8 or the model dtype) or an int8 cache's scale
     leaf [B, T, KV]."""
     S, T = val.shape[1], buf.shape[1]
+    if spmd.is_dtensor(buf):
+        return _write_cache_local(buf, val, cache_pos, mask)
     if isinstance(cache_pos, int):
         if mask is not None:
             raise ValueError("a masked commit takes [B] cache positions")
@@ -167,6 +194,44 @@ def _write_cache(buf, val, cache_pos, mask=None):
             keep = mask.view((-1,) + (1,) * (new.ndim - 1))
             new = torch.where(keep, new, buf[rows, idx])
         buf[rows, idx] = new
+
+
+def _write_cache_local(buf, val, cache_pos, mask=None):
+    """:func:`_write_cache` into a sharded cache: each rank writes the part
+    of the new entries that falls in its own shard of the sequence axis,
+    and nothing else (a write through DTensor would gather the cache).
+    ``val`` is first laid out with ``buf``'s batch split and its other
+    dims replicated (a small tensor: the new tokens only)."""
+    S, T = val.shape[1], buf.shape[1]
+    if S != 1 and not isinstance(cache_pos, int):
+        raise ValueError("per-row cache positions take one token per row")
+    if isinstance(cache_pos, int) and not (0 <= cache_pos and cache_pos + S <= T):
+        raise IndexError(f"cache write [{cache_pos}, {cache_pos + S}) "
+                         f"outside a cache of length {T}")
+    if isinstance(cache_pos, int) and mask is not None:
+        raise ValueError("a masked commit takes [B] cache positions")
+    vloc = spmd.follow(val, buf, {0: 0}).to_local()
+    bloc = buf.to_local()
+    t0, tl = spmd.window(buf, 1)
+    if isinstance(cache_pos, int):
+        lo, hi = max(cache_pos, t0), min(cache_pos + S, t0 + tl)
+        if lo < hi:
+            bloc[:, lo - t0:hi - t0] = vloc[:, lo - cache_pos:hi - cache_pos].to(bloc.dtype)
+        return
+    b0, bl = spmd.window(buf, 0)
+    if tl == 0 or bl == 0:
+        return
+    idx = spmd.replicate(cache_pos).to(bloc.device)
+    idx = (idx.to_local() if spmd.is_dtensor(idx) else idx)[b0:b0 + bl]
+    keep = (idx >= t0) & (idx < t0 + tl)
+    if mask is not None:
+        m = spmd.replicate(mask)
+        keep = keep & (m.to_local() if spmd.is_dtensor(m) else m)[b0:b0 + bl]
+    rows = torch.arange(bl, device=bloc.device)
+    li = (idx - t0).clamp(0, tl - 1)
+    new = vloc[:, 0].to(bloc.dtype)
+    new = torch.where(keep.view((-1,) + (1,) * (new.ndim - 1)), new, bloc[rows, li])
+    bloc[rows, li] = new
 
 
 def _flash_fwd_blocks(q, k, v, *, causal, q_block, kv_block):
@@ -312,6 +377,16 @@ def _resolve_impl(impl: str, S: int, T: int):
     return impl, FLASH_BLOCK
 
 
+def _core(fn, q, k, v, *rest):
+    """An attention core ``fn(q, k, v, *rest)``; on DTensors it runs on the
+    local batch and head shards (:func:`repro_torch.spmd.local_attention`),
+    as the kernels do: DTensor's own strategies for the blocked einsums
+    search a plan space that grows past use on a three-axis mesh."""
+    if any(spmd.is_dtensor(t) for t in (q, k, v)):
+        return spmd.local_attention(fn, q, k, v, *rest)
+    return fn(q, k, v, *rest)
+
+
 def quantize_int8(x):
     """The int8 cache's quantizer: per (position, kv head) scales
     ``max|x| / 127`` (at least 1e-8) over the head dim, values rounded half
@@ -374,7 +449,7 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
     hd, kv_h = cfg.hd, cfg.num_kv_heads
     h = p["wq"].shape[-1] // hd           # padded head count (cfg.padded_heads)
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = (xn @ p["wq"]).reshape(B, S, h, hd)
+    q = spmd.split_dim(xn @ p["wq"], -1, h).reshape(B, S, h, hd)
     new_cache = None
     if cross_kv is not None:
         k, v = cross_kv
@@ -386,8 +461,8 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
             out = _mask_pad_heads(fa_ops.decode_attention(q, k, v, lengths), h)
             return out.reshape(B, S, h * hd) @ p["wo"], None
     else:
-        k = (xn @ p["wk"]).reshape(B, S, kv_h, hd)
-        v = (xn @ p["wv"]).reshape(B, S, kv_h, hd)
+        k = spmd.split_dim(xn @ p["wk"], -1, kv_h).reshape(B, S, kv_h, hd)
+        v = spmd.split_dim(xn @ p["wv"], -1, kv_h).reshape(B, S, kv_h, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is not None:
@@ -415,19 +490,20 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
                     lengths = decode_lengths(cache_pos, B, x.device)
                 out = fa_ops.decode_attention(q, ck, cv, lengths)
             else:
-                out = _sdpa(q, ck, cv, _decode_bias(cache_pos, S, T, x.device))
+                out = _core(_sdpa, q, ck, cv, _decode_bias(cache_pos, S, T, x.device))
             out = _mask_pad_heads(out, h)
             return out.reshape(B, S, h * hd) @ p["wo"], new_cache
     impl, blk = _resolve_impl(impl, S, k.shape[1])
     if impl == "kernel":
         out = fa_ops.flash_attention(q, k, v, causal=causal)
     elif impl == "flash":
-        out = flash_attention_fused(q, k, v, causal, blk, blk)
+        out = _core(lambda q, k, v: flash_attention_fused(q, k, v, causal, blk, blk),
+                    q, k, v)
     elif impl == "flash_novjp":
-        out = flash_attention_jnp(q, k, v, causal=causal)
+        out = _core(lambda q, k, v: flash_attention_jnp(q, k, v, causal=causal), q, k, v)
     else:
         bias = causal_bias(S, S, device=x.device) if causal else 0.0
-        out = _sdpa(q, k, v, bias)
+        out = _core(_sdpa, q, k, v, bias)
     out = _mask_pad_heads(out, h)
     out = out.reshape(B, S, h * hd) @ p["wo"]
     return out, new_cache
@@ -448,6 +524,16 @@ def init_ffn(generator, cfg: ModelConfig, dtype, device, stack: int = 0):
     }
 
 
+def spec_ffn(stack: bool = False):
+    pre = (None,) if stack else ()
+    return {
+        "wg": P(*pre, "data", "model"),
+        "wu": P(*pre, "data", "model"),
+        "wd": P(*pre, "model", "data"),
+        "ln": P(*pre, None),
+    }
+
+
 def ffn(p, cfg: ModelConfig, x):
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     return (F.silu(xn @ p["wg"]) * (xn @ p["wu"])) @ p["wd"]
@@ -462,7 +548,21 @@ def init_embed(generator, cfg: ModelConfig, dtype, device):
                       cfg.d_model, device)
 
 
+def spec_embed():
+    return P("model", "data")
+
+
 def embed(table, tokens):
+    """``table[tokens]``.  On DTensors the lookup runs on each rank's own
+    tokens against the whole table (its vocab and width shards gathered):
+    the output keeps the tokens' batch and sequence splits."""
+    if spmd.is_dtensor(table) or spmd.is_dtensor(tokens):
+        table = spmd.follow(table, table if spmd.is_dtensor(table) else tokens, {})
+        tokens = (spmd.keep_sharded(tokens, (0, 1)) if spmd.is_dtensor(tokens)
+                  else spmd.follow(tokens, table, {}))
+        return local_map(lambda t, i: t[i.long()], out_placements=(tokens.placements,),
+                         in_placements=(table.placements, tokens.placements),
+                         device_mesh=table.device_mesh)(table, tokens)
     return table[tokens.long()]
 
 

@@ -17,6 +17,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.linear_scan import linear_scan
+from repro_torch.tree import P
 
 DH = 64      # mamba2 head dim
 CONV_W = 4   # causal depthwise conv width
@@ -51,6 +52,20 @@ def init_layer(generator, cfg: ModelConfig, dtype, device, stack: int = 0):
         "dt_bias": full((hm,), 0.0, torch.float32),
         "w_out": mk((di, d), di),
         "gn": full((di,), 1.0),
+    }
+
+
+def spec_layer(stack: bool = False):
+    pre = (None,) if stack else ()
+    return {
+        "ln": P(*pre, None),
+        # the fused in_proj width (2*di + 2n + hm) is not 16-divisible: shard
+        # the d_model (input) dim instead
+        "w_in": P(*pre, "data", None),
+        "conv": P(*pre, None, "model"),
+        "A_log": P(*pre, None), "D": P(*pre, None), "dt_bias": P(*pre, None),
+        "w_out": P(*pre, "model", "data"),
+        "gn": P(*pre, "model"),
     }
 
 
@@ -108,4 +123,11 @@ def init_state(cfg: ModelConfig, batch: int, device="cuda"):
         "ssm": torch.zeros((cfg.num_layers, batch, hm, n, DH), device=device),
         "conv": torch.zeros((cfg.num_layers, batch, CONV_W - 1, d_inner(cfg) + 2 * n),
                             device=device),
+    }
+
+
+def state_specs(batch_axes):
+    return {
+        "ssm": P(None, batch_axes, None, "model", None),
+        "conv": P(None, batch_axes, None, "model"),
     }

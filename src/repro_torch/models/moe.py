@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.tree import P
 
 DISPATCH_MODES = ("einsum", "gather")
 
@@ -34,6 +35,17 @@ def init_moe(generator, cfg: ModelConfig, dtype, device, stack: int = 0):
         "wu": dense_init(generator, pre + (e, d, f), dtype, d, device),
         "wd": dense_init(generator, pre + (e, f, d), dtype, f, device),
         "ln": torch.ones(pre + (d,), dtype=dtype, device=device),
+    }
+
+
+def spec_moe(stack: bool = False):
+    pre = (None,) if stack else ()
+    return {
+        "router": P(*pre, "data", None),
+        "wg": P(*pre, "model", "data", None),
+        "wu": P(*pre, "model", "data", None),
+        "wd": P(*pre, "model", None, "data"),
+        "ln": P(*pre, None),
     }
 
 

@@ -16,6 +16,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.linear_scan import linear_scan
+from repro_torch.tree import P
 
 LORA_R = 64
 
@@ -48,6 +49,20 @@ def init_layer(generator, cfg: ModelConfig, dtype, device, stack: int = 0):
         "cm_k": mk((d, f), d),
         "cm_v": mk((f, d), f),
         "cm_r": mk((d, d), d),
+    }
+
+
+def spec_layer(stack: bool = False):
+    pre = (None,) if stack else ()
+    d2 = P(*pre, "data", "model")
+    return {
+        "ln1": P(*pre, None), "ln2": P(*pre, None), "mu": P(*pre, None, None),
+        "wr": d2, "wk": d2, "wv": d2, "wg": d2,
+        "wo": P(*pre, "model", "data"),
+        "w0": P(*pre, None), "wA": P(*pre, "data", None), "wB": P(*pre, None, "data"),
+        "u": P(*pre, None, None), "gn": P(*pre, None),
+        "cm_mu": P(*pre, None, None),
+        "cm_k": d2, "cm_v": P(*pre, "model", "data"), "cm_r": P(*pre, "data", "model"),
     }
 
 
@@ -111,4 +126,14 @@ def init_state(cfg: ModelConfig, batch: int, device="cuda"):
         "wkv": torch.zeros((L_, batch, cfg.num_heads, cfg.hd, cfg.hd), device=device),
         "last_tm": torch.zeros((L_, batch, 1, d), device=device),
         "last_cm": torch.zeros((L_, batch, 1, d), device=device),
+    }
+
+
+def state_specs(batch_axes):
+    """Sharding of :func:`init_state`: heads (40) do not divide the 16-way
+    model axis, so the key channels are sharded instead."""
+    return {
+        "wkv": P(None, batch_axes, None, "model", None),
+        "last_tm": P(None, batch_axes, None, None),
+        "last_cm": P(None, batch_axes, None, None),
     }

@@ -25,11 +25,12 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MODEL_AXIS_SIZE, ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import rwkv6 as R6
+from repro_torch.tree import P
 
 
 def _round_to(x, m):
@@ -76,6 +77,24 @@ def init_params(cfg: ModelConfig, generator=None, dtype=torch.bfloat16,
     return params
 
 
+def param_specs(cfg: ModelConfig):
+    segs = segment_lengths(cfg)
+    spec_layer = R6.spec_layer if cfg.family == "ssm" else M2.spec_layer
+    specs = {
+        "embed": L.spec_embed(),
+        "segments": tuple(spec_layer(True) for _ in segs),
+        "final_norm": P(None),
+    }
+    if cfg.family == "hybrid":
+        specs["shared_attn"] = L.spec_attn(
+            False, q_shard=cfg.padded_heads % MODEL_AXIS_SIZE == 0,
+            kv_shard=cfg.num_kv_heads % MODEL_AXIS_SIZE == 0)
+        specs["shared_ffn"] = L.spec_ffn(False)
+    if cfg.num_exits:
+        specs["exit_norms"] = P(None, None)
+    return specs
+
+
 # ----------------------------------------------------------------------------
 # state ("cache") — the recurrent state that ships at a partition cut
 # ----------------------------------------------------------------------------
@@ -106,6 +125,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
         cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=dev)
     return cache
+
+
+def cache_specs(cfg: ModelConfig, batch_axes, seq_axes="model"):
+    """Spec tree of :func:`init_cache`.  RWKV's heads (40) do not divide the
+    model axis, so its state shards the key channels; Mamba-2's shards the
+    state dim N by the same rule."""
+    segs = []
+    for _ in segment_lengths(cfg):
+        if cfg.family == "ssm":
+            segs.append({"wkv": P(None, batch_axes, None, "model", None),
+                         "last_tm": P(None, batch_axes, None, None),
+                         "last_cm": P(None, batch_axes, None, None)})
+        else:
+            segs.append({"ssm": P(None, batch_axes, None, "model", None),
+                         "conv": P(None, batch_axes, None, "model")})
+    out = {"segments": tuple(segs)}
+    if cfg.family == "hybrid":
+        out["shared_k"] = P(None, batch_axes, seq_axes, None, None)
+        out["shared_v"] = P(None, batch_axes, seq_axes, None, None)
+    return out
 
 
 # ----------------------------------------------------------------------------

@@ -26,14 +26,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MODEL_AXIS_SIZE, ModelConfig
 from repro_torch.device import resolve
 from repro_torch.kernels.exit_head import ops as eh_ops
 from repro_torch.kernels.exit_head import ref as eh_ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch import spmd
+from repro_torch.tree import P
 
 VIS_DIM = 1024  # stub modality-frontend embedding width
 
@@ -130,6 +133,40 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def _attn_shard_flags(cfg: ModelConfig):
+    """(q_shard, kv_shard): whether whole padded query / key heads divide
+    the production ``model`` axis."""
+    return (cfg.padded_heads % MODEL_AXIS_SIZE == 0,
+            cfg.num_kv_heads % MODEL_AXIS_SIZE == 0)
+
+
+def _spec_unit(cfg: ModelConfig):
+    qs, ks = _attn_shard_flags(cfg)
+    sa = L.spec_attn(True, q_shard=qs, kv_shard=ks)
+    if cfg.num_experts and unit_size(cfg) == 2:
+        return {"attn0": sa, "ffn": L.spec_ffn(True),
+                "attn1": sa, "moe": MOE.spec_moe(True)}
+    if cfg.num_experts:
+        return {"attn": sa, "moe": MOE.spec_moe(True)}
+    return {"attn": sa, "ffn": L.spec_ffn(True)}
+
+
+def param_specs(cfg: ModelConfig):
+    """The reference's ``param_specs``: a spec tree congruent with
+    :func:`init_params`."""
+    segs = segment_lengths(cfg)
+    specs = {
+        "embed": L.spec_embed(),
+        "segments": tuple(_spec_unit(cfg) for _ in segs),
+        "final_norm": P(None),
+    }
+    if cfg.num_exits:
+        specs["exit_norms"] = P(None, None)
+    if cfg.frontend == "vision":
+        specs["mm_proj"] = P(None, "data")
+    return specs
+
+
 # ----------------------------------------------------------------------------
 # blocks
 # ----------------------------------------------------------------------------
@@ -142,11 +179,26 @@ def _units(tree, n: int):
     return [{k: v[u] for k, v in flat.items()} for u in range(n)]
 
 
+def _seq_shard(x):
+    """Sequence parallelism (the reference's ``_seq_shard``): the residual
+    stream of a sharded run redistributed to its sequence split over the
+    ``model`` axis between blocks, the other mesh axes as they are, so the
+    tensor-parallel output reductions become reduce-scatters and
+    all-gathers.  A plain tensor is returned as it is."""
+    if not isinstance(x, DTensor) or "model" not in x.device_mesh.mesh_dim_names:
+        return x
+    pl = list(x.placements)
+    pl[x.device_mesh.mesh_dim_names.index("model")] = Shard(1)
+    return x.redistribute(x.device_mesh, pl)
+
+
 def _unit_fwd(cfg, lp, x, positions, *, impl, kv, cache_pos, lengths,
-              prefill_mode, write_mask, moe_dispatch):
+              prefill_mode, write_mask, moe_dispatch, seq_parallel=False):
     """One unit.  ``kv``: this unit's cache leaves by name (``attn_k``, ...)
     or None.  Returns (x, aux)."""
     aux = 0.0
+    x0 = x
+    maybe_shard = _seq_shard if seq_parallel else (lambda x: spmd.pin(x, x0))
 
     def attn(name, x):
         c = None
@@ -161,25 +213,25 @@ def _unit_fwd(cfg, lp, x, positions, *, impl, kv, cache_pos, lengths,
         return x + out
 
     if cfg.num_experts and unit_size(cfg) == 2:
-        x = attn("attn0", x)
-        x = x + L.ffn(lp["ffn"], cfg, x)
-        x = attn("attn1", x)
+        x = maybe_shard(attn("attn0", x))
+        x = maybe_shard(x + L.ffn(lp["ffn"], cfg, x))
+        x = maybe_shard(attn("attn1", x))
         mo, aux = MOE.moe_ffn(lp["moe"], cfg, x, dispatch_mode=moe_dispatch)
-        x = x + mo
+        x = maybe_shard(x + mo)
     elif cfg.num_experts:
-        x = attn("attn", x)
+        x = maybe_shard(attn("attn", x))
         mo, aux = MOE.moe_ffn(lp["moe"], cfg, x, dispatch_mode=moe_dispatch)
-        x = x + mo
+        x = maybe_shard(x + mo)
     else:
-        x = attn("attn", x)
-        x = x + L.ffn(lp["ffn"], cfg, x)
+        x = maybe_shard(attn("attn", x))
+        x = maybe_shard(x + L.ffn(lp["ffn"], cfg, x))
     return x, aux
 
 
 def _run_segment(cfg, seg_params, x, positions, *, impl="kernel",
                  seg_cache=None, cache_pos=None, lengths=None,
                  prefill_mode=False, write_mask=None, remat=False,
-                 moe_dispatch="einsum"):
+                 moe_dispatch="einsum", seq_parallel=False):
     """Run a segment's stacked units in order.  Returns (x, aux_sum,
     seg_cache); the cache is written in place (only the rows of
     ``write_mask`` when given).  ``remat`` (no cache) checkpoints each
@@ -192,7 +244,7 @@ def _run_segment(cfg, seg_params, x, positions, *, impl="kernel",
             return _unit_fwd(cfg, lp, x, positions, impl=impl, kv=kv,
                              cache_pos=cache_pos, lengths=lengths,
                              prefill_mode=prefill_mode, write_mask=write_mask,
-                             moe_dispatch=moe_dispatch)
+                             moe_dispatch=moe_dispatch, seq_parallel=seq_parallel)
 
         x, a = checkpoint(unit, x, use_reentrant=False) if remat else unit(x)
         aux = aux + a
@@ -210,12 +262,13 @@ def _embed_inputs(cfg, params, tokens, prefix_emb):
 
 def forward(cfg: ModelConfig, params, tokens, prefix_emb=None, *,
             exit_point: Optional[int] = None, impl="auto", remat=False,
-            collect_exits=True, moe_dispatch="einsum"):
+            collect_exits=True, moe_dispatch="einsum", seq_parallel=False):
     """Training/eval forward.  Returns (list of (exit_idx, hidden_normed),
     aux_loss): the MoE's load-balancing loss summed over its units (0.0 for
     the dense family).  Hidden states are returned (not logits) so callers
     fuse the vocab projection with their loss or confidence computation; a
-    VLM's cover its P prefix positions too."""
+    VLM's cover its P prefix positions too.  ``seq_parallel``: see
+    :func:`_seq_shard`."""
     B = tokens.shape[0]
     x = _embed_inputs(cfg, params, tokens, prefix_emb)
     S = x.shape[1]
@@ -226,7 +279,8 @@ def forward(cfg: ModelConfig, params, tokens, prefix_emb=None, *,
     aux = 0.0
     for si in range(n_seg):
         x, a, _ = _run_segment(cfg, params["segments"][si], x, positions, impl=impl,
-                               remat=remat, moe_dispatch=moe_dispatch)
+                               remat=remat, moe_dispatch=moe_dispatch,
+                               seq_parallel=seq_parallel)
         aux = aux + a
         is_last = si == n_seg - 1
         if not is_last and cfg.num_exits and collect_exits:
@@ -263,6 +317,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                                                    device=dev)
         cache.append(seg)
     return tuple(cache)
+
+
+def cache_specs(cfg: ModelConfig, batch_axes, seq_axes="model", quant: bool = False):
+    """Spec tree of :func:`init_cache`: batch over ``batch_axes``, the
+    sequence over ``seq_axes``."""
+    spec = P(None, batch_axes, seq_axes, None, None)
+    sspec = P(None, batch_axes, seq_axes, None)
+    out = []
+    for _ in segment_lengths(cfg):
+        seg = {nm + sfx: spec for nm in attn_names(cfg) for sfx in ("_k", "_v")}
+        if quant:
+            seg.update({nm + sfx: sspec for nm in attn_names(cfg)
+                        for sfx in ("_k_scale", "_v_scale")})
+        out.append(seg)
+    return tuple(out)
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, prefix_emb=None, *,

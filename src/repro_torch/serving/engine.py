@@ -38,6 +38,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.graph import InferenceGraph
 from repro_torch.core.partitioner import (CoInferencePlan, branch_latency,
@@ -109,6 +112,37 @@ def quantize_bw(bw_bps: float, sig_figs: int = 3) -> float:
         _QBW_MEMO[bw_bps] = q
     return q
 
+
+
+def _shard_wrap(step, bucket: int):
+    """The batched decode ``step`` split over a 1-D mesh of the world (the
+    reference's ``shard_map`` of its vmapped step): every rank holds the
+    whole parameters and batch, runs its own contiguous ``bucket / world``
+    rows, and the rows are gathered back along the batch axis (dim 0 of
+    the hidden state, dim 1 of every cache leaf).  On a world of one, or a
+    bucket the world does not divide, this is ``step`` itself: the plain
+    batched variant runs, bit for bit."""
+    if not dist.is_initialized() or dist.get_world_size() <= 1 \
+            or bucket % dist.get_world_size():
+        return step
+    world, rank = dist.get_world_size(), dist.get_rank()
+    meshes = {}
+
+    def gather(x, dim, mesh):
+        return DTensor.from_local(x.contiguous(), mesh, [Shard(dim)],
+                                  run_check=False).full_tensor()
+
+    def sharded(params, cache, tokens, pos):
+        dev = tokens.device.type
+        if dev not in meshes:
+            meshes[dev] = init_device_mesh(dev, (world,), mesh_dim_names=("b",))
+        mesh, n = meshes[dev], tokens.shape[0] // world
+        rows = slice(rank * n, (rank + 1) * n)
+        h, c = step(params, tree_map(lambda x: x[:, rows].clone(), cache),
+                    tokens[rows], pos[rows])
+        return gather(h, 0, mesh), tree_map(lambda x: gather(x, 1, mesh), c)
+
+    return sharded
 
 class CoInferenceStepper:
     """Reusable plan -> decode -> demote unit.
@@ -475,19 +509,20 @@ class CoInferenceStepper:
         (h, cache)`` for ``graph_exit`` at ``batch`` co-located requests,
         over caches concatenated along the batch axis with one position per
         row; memoized per ``(model exit, batch bucket, sharded)``.
-        ``sharded`` splits the batch
-        over a device mesh in the reference; the port has no mesh yet (it
-        comes with the ``launch/mesh.py`` slice), so it runs the plain
-        batched variant, as the reference does on a one-device host."""
+        ``sharded`` splits the batch over a 1-D mesh of the world
+        (:func:`_shard_wrap`)."""
         assert self.model is not None, "timing-only stepper has no decode path"
         mexit = None if graph_exit is None else self.to_model_exit(graph_exit)
-        key = (mexit, self.batch_bucket(batch), bool(sharded))
+        bucket = self.batch_bucket(batch)
+        key = (mexit, bucket, bool(sharded))
         fn = self._decode_vfns.get(key)
         if fn is None:
             self.jit_misses += 1
             ep = None if mexit is None or mexit >= self.n_model else mexit - 1
             fn = (lambda p, c, t, pos: self.model.decode_step(
                 p, c, t, pos, exit_point=ep, impl=self.impl)[:2])
+            if sharded:
+                fn = _shard_wrap(fn, bucket)
             self._decode_vfns[key] = fn
         else:
             self.jit_hits += 1

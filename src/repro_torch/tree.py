@@ -13,6 +13,21 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator, List, Tuple
 
 
+class P(tuple):
+    """A sharding spec, the reference's ``jax.sharding.PartitionSpec``: one
+    entry per tensor dim, ``None`` (replicated), a mesh axis name, or a
+    tuple of names; a one-name tuple is that name, as JAX canonicalizes
+    it.  A leaf of every tree walk here, so spec trees are congruent with
+    the tensor trees they lay out."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                                     for e in entries))
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
@@ -21,6 +36,8 @@ def _children(tree):
     """(path name, child) pairs of a node, or None for a leaf."""
     if tree is None:
         return []
+    if isinstance(tree, P):
+        return None
     if isinstance(tree, dict):
         return [(str(k), tree[k]) for k in sorted(tree)]
     if _is_namedtuple(tree):
@@ -58,6 +75,8 @@ def unflatten(tree_like, new_leaves) -> Any:
     def build(node):
         if node is None:
             return None
+        if isinstance(node, P):
+            return next(it)
         if isinstance(node, dict):
             vals = {k: build(node[k]) for k in sorted(node)}
             return {k: vals[k] for k in node}

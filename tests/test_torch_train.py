@@ -266,8 +266,8 @@ def test_train_step_matches_reference():
     cfg = get_smoke_config(arch)
     params = params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, rparams), device="cpu")
     opt = adamw_init(params)
-    step = make_train_step(Model(cfg), ShapeConfig("t", 32, 2, "train"), device="cpu",
-                           **TRAIN_KW)
+    step, _ = make_train_step(Model(cfg), None, ShapeConfig("t", 32, 2, "train"),
+                              device="cpu", **TRAIN_KW)
     ropt = ref_adamw.adamw_init(rparams)
     with mesh:
         for b in batches:
