@@ -214,7 +214,45 @@ order; any failure exits non-zero:
    ``PrefetchLoader(mesh=, spec=)``'s local shard equal to the host batch;
    and the dry run of llama3.2-1b decode_32k on a fake 256-rank group as a
    subprocess, with ``roofline.report`` on its record (analytic: shapes
-   and H100 constants, not measured).
+   and H100 constants, not measured);
+21. every family trained on the card (after phase 20, before the profiler
+   sessions): rwkv6-3b, zamba2-2.7b and seamless-m4t-large-v2 whole,
+   llava-next-mistral-7b and llama4-scout-17b-a16e at full width with their
+   depth cut (TRAIN_LAYERS).  First the float32 holds at batch 1 with TF32
+   off, per leaf of the grads within LM_GRAD_RTOL max|g| + LM_GRAD_ATOL
+   and the losses within LM_LOSS_TOL (TRAIN_HOLDS, each at its S and
+   depth): remat against none for every family, flash (attention "auto",
+   past 1024² scores) against dense for zamba2's shared attention, seamless
+   (encoder, decoder self- and cross-attention), llava and scout (its
+   router flips counted and logged with their margins), the chunked scan
+   against the sequential one for rwkv6-3b and zamba2-2.7b at S 256, every
+   scan also held on its own inputs, forward and backward; then the card
+   against the CPU on the same parameters for rwkv6-3b, zamba2-2.7b and
+   seamless at S 128 (TRAIN_CPU_LAYERS).  rwkv6-3b's blocks amplify a
+   rounding difference in their inputs (END_TO_END), so its end-to-end
+   distances are logged with their worst leaf, and held instead are each
+   scan and each block on its own inputs (card against CPU: the block run
+   on both from the same inputs) and, card against CPU end to end, what
+   lies outside the blocks (every block the identity).  Then
+   ``launch/train.py --full``'s recipe through the step
+   ``train(smoke=False)`` runs (``train.trainer_step``:
+   ``make_train_step(remat=True, ce_chunk=512)``, bf16 parameters, f32
+   moments, AdamW, the state donated) on batches ``train.train_batch``
+   builds (frames for seamless, llava's prefix with its tokens cut): a
+   warm-up step and 3 timed, every loss finite (else the step and the first
+   non-finite leaf are named), every leaf's gradient non-zero and every
+   leaf changed that bf16 can move at these learning rates, with each
+   step's wall, tokens/s, peak memory and FLOP rate (FLOPs counted by
+   ``torch.utils.flop_counter``); no kernel launched;
+22. the port's five example scripts (``examples/torch_*.py``) as
+   subprocesses on the card at their defaults, side by side, each to exit
+   0 with the lines it promises (quickstart's five plans, the dynamic
+   pipeline's SLO attainment, the LLM script's serving summary and exit-head
+   line with conf in (0, 1] and entropy at most log V, with ``--dynamic``
+   too, the fleet's summary and ten token rows, BranchyAlexNet's falling
+   joint loss and five exit accuracies); meanwhile the LLM and fleet
+   scripts in process, each kernel of their path launched (flash, decode
+   and the exit head; flash and decode).
 
 The line before the last is the JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
@@ -2120,6 +2158,7 @@ ALEX_LR, ALEX_WD, ALEX_HOLD_STEPS = 1e-3, 1e-4, 5
 ALEX_LOSS_TOL, ALEX_ATOL, ALEX_FAR_SHARE = 1e-5, 1e-5, 1000
 LM_TRAIN = dict(steps=6, batch=4, seq=2049, save_every=2, inject_failure_at=3)
 LM_GRAD_RTOL, LM_GRAD_ATOL = 1e-4, 1e-6
+LM_LOSS_TOL = 1e-5                 # two paths' f32 losses (phase 21)
 LM_TIMED_STEPS = 3
 #: leaves that stay ones under the --full recipe: bfloat16 spaces values
 #: near 1 by 2^-8 to 2^-7, far above the recipe's steps (lr <= 3e-4)
@@ -3737,11 +3776,12 @@ def substrate_phase(torch, dev="cuda"):
 
     def timed(step):
         """The step's outputs and the wall of its second call (the first
-        warms the allocator and, on a mesh, DTensor's sharding cache)."""
-        step(params, adamw_init(params), tb)
+        warms the allocator and, on a mesh, DTensor's sharding cache), each
+        call on a copy of the parameters: the step donates the state."""
+        step(T.tree_map(torch.clone, params), adamw_init(params), tb)
         sync()
         t1 = time.perf_counter()
-        out = step(params, adamw_init(params), tb)
+        out = step(T.tree_map(torch.clone, params), adamw_init(params), tb)
         sync()
         return out, time.perf_counter() - t1
 
@@ -3834,6 +3874,631 @@ def substrate_phase(torch, dev="cuda"):
     dist.destroy_process_group()
     log(f"phase 20: took {time.perf_counter() - t_phase:.1f} s; launches {totals}")
     return totals
+
+
+# ---------------------------------------------------------------- phase 21
+# Every family trained on the card, the reference's ``launch/train.py
+# --arch`` for rwkv6-3b (ssm), zamba2-2.7b (hybrid: Mamba-2 and a shared
+# attention at hd 80), seamless-m4t-large-v2 (enc-dec), llava-next-mistral-7b
+# (VLM: a 2880-embedding prefix) and llama4-scout-17b-a16e (MoE, 16 experts),
+# at full width; random weights from torch.Generator seed 0.  Training
+# reaches none of the port's kernels (the reference's reaches no
+# pl.pallas_call): the chunked scan and the flash blocks run in torch ops.
+TRAIN_FAMILIES = (RWKV, ZAMBA, SEAMLESS, LLAVA, SCOUT)
+# depth by precision (a family not named runs whole).  The --full recipe
+# holds 12 B a parameter (bf16 parameters and grads, f32 moments; the step
+# donates its state): llava's 32 layers are 85.4 GB, 16 are 43.5; scout's 48
+# layers hold ~201 GB of bf16 weights alone, 2 layers 62.5 GB.  The f32 holds
+# keep the parameters and two sets of grads, 12 B a parameter: llava at 8
+# layers (22.6 GB), scout at 1 (37.5 GB)
+TRAIN_LAYERS = {LLAVA: {"bf16": 16, "f32": 8}, SCOUT: {"bf16": 2, "f32": 1}}
+# the f32 holds (B1, TF32 off): (label, path A, path B), each path the
+# keywords of Model.loss, "scan": "sequential" forcing the sequential scan in
+# every RWKV-6 and Mamba-2 block; by family, each hold at S model positions
+# and a depth (None: the family's f32 depth).  Flash needs S·T > 1024² (and
+# blocks of 1024 that divide S).  The ssm and hybrid stacks' chunked scan
+# runs a python loop over chunks of 16 (host-bound: a zamba2 step at S 1024
+# took ~11 s on NVIDIA H100 80GB HBM3, 700.00 W), so their holds are at S
+# 256, where the sequential scan is affordable, and at 8 layers (rwkv6-3b)
+# and 12 (zamba2-2.7b: two units of six Mamba-2 blocks, each followed by
+# the shared attention), each scan also held on its own inputs
+HOLD_REMAT = ("remat against none", {"remat": True}, {"remat": False})
+HOLD_FLASH = ("flash (auto) against dense", {"remat": True},
+              {"remat": True, "attn_impl": "dense"})
+HOLD_SCAN = ("chunked scan against sequential", {"remat": False},
+             {"remat": False, "scan": "sequential"})
+TRAIN_HOLDS = {RWKV: ((HOLD_REMAT, 256, 8), (HOLD_SCAN, 256, 8)),
+               ZAMBA: ((HOLD_REMAT, 256, 12), (HOLD_SCAN, 256, 12),
+                       (HOLD_FLASH, 2048, 12)),
+               SEAMLESS: ((HOLD_REMAT, 2048, None), (HOLD_FLASH, 2048, None)),
+               LLAVA: ((HOLD_REMAT, 3072, None), (HOLD_FLASH, 3072, None)),
+               SCOUT: ((HOLD_REMAT, 2048, None), (HOLD_FLASH, 2048, None))}
+# card against CPU: the same f32 parameters and batch on both, at S 128 and
+# these depths (zamba2's smallest cut of whole units is 12 layers: two units
+# of six Mamba-2 blocks, each followed by the shared attention); the
+# enc-dec's encoder is cut with its decoder
+TRAIN_CPU_LAYERS = {RWKV: 2, ZAMBA: 12, SEAMLESS: 2}
+TRAIN_CPU_SEQ = 128
+# the --full recipe's step (train.trainer_step: make_train_step(remat=True,
+# ce_chunk=512), bf16 parameters, f32 moments, AdamW, donated state) at
+# batch 1 and the trainer's seq (tokens a row: the model sees seq - 1
+# positions, the VLM's 2880-row prefix and seq - 2880 text tokens, seq in
+# all).  The ssm and hybrid steps wait on the chunked scan's python loop
+# (~5-6 s a step at seq 513 on NVIDIA H100 80GB HBM3, 700.00 W), so they
+# run at 257 to keep the script's time.  The trainer gives the enc-dec seq
+# frames and its decoder seq - 1 tokens, so past 1024 no flash block
+# divides both (in either package): seamless trains at 1024, its attention
+# dense
+TRAIN_SEQ = {RWKV: 257, ZAMBA: 257, SEAMLESS: 1024, LLAVA: 3072, SCOUT: 2049}
+TRAIN_BATCH = 1
+# a leaf of the bf16 recipe that no step can move: every element's half
+# bf16 spacing is above TRAIN_MOVE_BOUND times the sum of the steps'
+# learning rates (an Adam step moves an element by at most a few lr)
+TRAIN_MOVE_BOUND = 4.0
+
+
+def cut_config(arch, layers):
+    """``arch``'s full config at ``layers`` layers (the enc-dec's encoder
+    cut with its decoder), whole when ``layers`` is None."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    cut = {"num_layers": layers}
+    if cfg.is_encdec:
+        cut["num_encoder_layers"] = layers
+    return dataclasses.replace(cfg, **cut)
+
+
+@contextlib.contextmanager
+def sequential_scans():
+    """Context: every RWKV-6 and Mamba-2 block's plain scan forced to the
+    sequential one (``linear_scan(mode="sequential")``)."""
+    from repro_torch.models import linear_scan as LS
+    from repro_torch.models import mamba2, rwkv6
+
+    def seq(*a, **kw):
+        return LS.linear_scan(*a, **dict(kw, mode="sequential"))
+    with patched(rwkv6, "linear_scan", seq), patched(mamba2, "linear_scan", seq):
+        yield
+
+
+@contextlib.contextmanager
+def shadowed_train_scans(torch, worst):
+    """Context: every RWKV-6 and Mamba-2 block's scan, as training runs it,
+    also held on its own inputs, forward and backward, against the
+    sequential scan: the output and the state by phase 7's rule (SCAN_ATOL
+    + 2 n F32_UNIT sum|terms|, sum|terms| the scan of the inputs' absolute
+    values), and each input's grads for one seeded cotangent within
+    LM_GRAD_RTOL of their largest + LM_GRAD_ATOL.  The worst shares of the
+    allowed error go to ``worst``."""
+    from repro_torch.models import linear_scan as LS
+    from repro_torch.models import mamba2, rwkv6
+    names = ("q", "k", "v", "log_w", "state", "u")
+
+    def scan(q, k, v, log_w, state, u=None, **kw):
+        out = LS.linear_scan(q, k, v, log_w, state, u=u, **kw)
+        ins = [t for t in (q, k, v, log_w, state, u) if t is not None]
+        gen = torch.Generator(device=q.device).manual_seed(worst["calls"])
+        with torch.enable_grad():
+            paths = []
+            for mode in (kw.get("mode", "auto"), "sequential"):
+                xs = [t.detach().clone().requires_grad_() for t in ins]
+                o, s = LS.linear_scan(*xs[:5], u=xs[5] if u is not None else None,
+                                      **dict(kw, mode=mode))
+                paths.append((xs, o, s))
+            cot = [torch.randn(t.shape, generator=gen, device=t.device, dtype=t.dtype)
+                   for t in paths[0][1:]]
+            (xa, oa, sa), (xb, ob, sb) = paths
+            ga = torch.autograd.grad((oa, sa), xa, cot)
+            gb = torch.autograd.grad((ob, sb), xb, cot)
+        with torch.no_grad():
+            mo, ms = LS.scan_sequential(q.abs(), k.abs(), v.abs(), log_w, state.abs(),
+                                        u=None if u is None else u.abs())
+            S, dk = q.shape[1], q.shape[3]
+            worst["o"] = max(worst["o"], ((oa - ob).abs() / (
+                SCAN_ATOL + 2 * (S + dk + 2) * F32_UNIT * mo)).max().item())
+            worst["state"] = max(worst["state"], ((sa - sb).abs() / (
+                SCAN_ATOL + 2 * (S + 2) * F32_UNIT * ms)).max().item())
+            for name, a, b in zip(names, ga, gb):
+                share = ((a - b).abs().max() / (LM_GRAD_RTOL * b.abs().max()
+                                                + LM_GRAD_ATOL)).item()
+                if share > worst["grad"][0]:
+                    worst["grad"] = (share, name)
+        worst["calls"] += 1
+        return out
+    with patched(rwkv6, "linear_scan", scan), patched(mamba2, "linear_scan", scan):
+        yield
+
+
+@contextlib.contextmanager
+def identity_blocks():
+    """Context: every RWKV-6 block the identity (its input, state and last
+    tokens passed through), leaving what lies outside the blocks: the
+    embedding, the norms, the tied exit heads and the CE."""
+    from repro_torch.models import rwkv6
+    with patched(rwkv6, "block", lambda p, cfg, x, state, lasts, **kw: (x, state, lasts)):
+        yield
+
+
+def loss_grads(torch, model, params, batch, path):
+    """(loss, grads by leaf) of ``Model.loss`` on ``path``'s keywords;
+    ``"scan": "sequential"`` forces the sequential scan, ``"blocks":
+    "identity"`` makes every RWKV-6 block the identity."""
+    from repro_torch import tree as T
+    kw = {k: v for k, v in path.items() if k not in ("scan", "blocks")}
+    leaves = [p.requires_grad_() for p in T.leaves(params)]
+    with contextlib.ExitStack() as ctx:
+        if path.get("scan") == "sequential":
+            ctx.enter_context(sequential_scans())
+        if path.get("blocks") == "identity":
+            ctx.enter_context(identity_blocks())
+        loss, _ = model.loss(params, batch, **kw)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    for p in leaves:
+        p.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def grads_held(label, keys, got, want, hold=True):
+    """Every leaf of ``got`` within LM_GRAD_RTOL of the leaf's largest
+    |want| + LM_GRAD_ATOL of ``want``; returns the worst share of the
+    tolerance and its leaf.  ``hold=False`` logs without requiring."""
+    worst = (0.0, "")
+    for k, g, w in zip(keys, got, want):
+        if not w.numel():                  # an empty stack (a segment of no units)
+            continue
+        tol = LM_GRAD_RTOL * float(w.abs().max()) + LM_GRAD_ATOL
+        err = float((g.float() - w.float()).abs().max())
+        if hold:
+            require(math.isfinite(err) and err <= tol,
+                    f"{label}: {k} max |diff| {err:.3e} > {tol:.3e}")
+        worst = max(worst, (err / tol if math.isfinite(err) else math.inf, k))
+    return worst
+
+
+def train_holds(torch, arch, cfg, holds, dev="cuda"):
+    """Phase 21's float32 holds (B1): each (hold, S, layers) of ``holds``
+    on ``cfg`` (cut to ``layers`` when given), path A's grads against path
+    B's, per leaf.  The scan hold also holds every scan of path A on its
+    own inputs against the sequential scan (``shadowed_train_scans``), and
+    holds the grads end to end where END_TO_END says (rwkv6-3b's are
+    logged: its blocks amplify the two scans' rounding differences into
+    the grads of the later blocks' weights, see ``train_vs_cpu``).  Scout's router choices are recorded on the flash
+    hold's two paths, every flip logged with its margin; with any, the
+    paths part by design: the grads are then logged, not held, and every
+    flip must be at a margin below MARGIN_TOL."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models.api import Model
+
+    out, depth, params = [], None, None
+    for (label, path_a, path_b), S, layers in holds:
+        t0 = time.perf_counter()
+        if params is None or layers != depth:
+            depth, params = layers, None
+            cut = cfg if layers is None else dataclasses.replace(
+                cfg, num_layers=layers, **({"num_encoder_layers": layers}
+                                           if cfg.is_encdec else {}))
+            model = Model(cut)
+            params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                                       dtype=torch.float32, device=dev)
+            keys = [k for k, _ in T.leaves_with_paths(params)]
+        batch = model.make_inputs(ShapeConfig("hold", S, 1, "train"),
+                                  generator=torch.Generator(device=dev).manual_seed(21),
+                                  device=dev)
+        routes = {"a": [], "b": []} if cfg.family == "moe" and label == HOLD_FLASH[0] else None
+        scans = ({"calls": 0, "o": 0.0, "state": 0.0, "grad": (0.0, "")}
+                 if label == HOLD_SCAN[0] else None)
+        with contextlib.ExitStack() as ctx:
+            if routes:
+                ctx.enter_context(recorded_routes(torch, routes["a"]))
+            if scans:
+                ctx.enter_context(shadowed_train_scans(torch, scans))
+            la, ga = loss_grads(torch, model, params, batch, path_a)
+        with recorded_routes(torch, routes["b"]) if routes else contextlib.nullcontext():
+            lb, gb = loss_grads(torch, model, params, batch, path_b)
+        what = f"phase 21 {arch} ({model.cfg.num_layers} layers) f32 B1 S{S} {label}"
+        if scans:
+            require(scans["calls"] == model.cfg.num_layers and scans["o"] <= 1
+                    and scans["state"] <= 1 and scans["grad"][0] <= 1,
+                    f"{what}: a scan off the sequential one on its own inputs: {scans}")
+        flips = []
+        if routes:
+            require(len(routes["a"]) == len(routes["b"]),
+                    f"{what}: {len(routes['a'])} MoE calls on one path, "
+                    f"{len(routes['b'])} on the other")
+            for call, ((ea, _), (eb, mb)) in enumerate(zip(routes["a"], routes["b"])):
+                flips += [(call, b, s, mb[b, s].item())
+                          for b, s in (ea != eb).nonzero().tolist()]
+            for call, b, s, m in flips:
+                log(f"{what}: router flip at MoE call {call} row {b} token {s}, top-2 "
+                    f"router margin {m:.3g}")
+            require(all(m < MARGIN_TOL for *_, m in flips),
+                    f"{what}: a token routed apart at a margin above {MARGIN_TOL}")
+        end_to_end = not flips and (not scans or END_TO_END.get(arch, True))
+        worst = grads_held(what, keys, ga, gb, hold=end_to_end)
+        dl = abs(la - lb)
+        if end_to_end:
+            require(dl <= LM_LOSS_TOL, f"{what}: losses {la!r} and {lb!r}")
+        bitwise = all(torch.equal(a, b) for a, b in zip(ga, gb))
+        log(f"{what}: losses {la:.6f} / {lb:.6f} (|diff| {dl:.3e}); every leaf "
+            + ("within" if end_to_end else "LOGGED, not held, against")
+            + f" {LM_GRAD_RTOL} max|g| + {LM_GRAD_ATOL}; worst leaf {worst[1]} at "
+            f"{worst[0]:.3e} of its tolerance"
+            + ("; every leaf equal bit for bit" if bitwise else "")
+            + (f"; {len(flips)} router flips over {len(routes['a'])} MoE calls, smallest "
+               f"top-2 router margin {min(m.min().item() for _, m in routes['b']):.3g}"
+               if routes else "")
+            + (f"; each of {scans['calls']} scans on its own inputs: output at "
+               f"{scans['o']:.3e}, state at {scans['state']:.3e} of the allowed error, "
+               f"grads at {scans['grad'][0]:.3e} of their tolerance ({scans['grad'][1]})"
+               if scans else "")
+            + f"; {time.perf_counter() - t0:.1f} s")
+        out.append({"hold": label, "S": S, "worst": worst[0], "flips": len(flips),
+                    **({"scans": scans} if scans else {})})
+        del ga, gb
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def shadowed_blocks_on_cpu(torch, worst):
+    """Context: every RWKV-6 block run on the card also run again, on the
+    card and on the CPU, from copies of its inputs, forward and backward
+    (one seeded cotangent): its outputs and the grads of its input, state
+    and weights, CPU against card, within LM_GRAD_RTOL of their largest +
+    LM_GRAD_ATOL.  The worst share goes to ``worst``."""
+    from repro_torch.models import rwkv6
+    inner = rwkv6.block
+
+    def block(p, cfg, x, state, lasts, **kw):
+        out = inner(p, cfg, x, state, lasts, **kw)
+        names = ["x", "state", "last_tm", "last_cm", *p]
+        ins = [x, state, *lasts, *p.values()]
+        gen = torch.Generator().manual_seed(worst["calls"])
+        runs, cot = [], None
+        for dev in ("cuda", "cpu"):
+            xs = [t.detach().to(dev, copy=True).requires_grad_() for t in ins]
+            with torch.enable_grad():
+                o = inner(dict(zip(p, xs[4:])), cfg, xs[0], xs[1], (xs[2], xs[3]), **kw)
+                flat = [o[0], o[1], *o[2]]
+                if cot is None:
+                    cot = [torch.randn(t.shape, generator=gen, dtype=t.dtype) for t in flat]
+                g = torch.autograd.grad(flat, xs, [c.to(dev) for c in cot], allow_unused=True)
+            runs.append([t.detach().cpu() for t in flat]
+                        + [torch.zeros(()) if t is None else t.cpu() for t in g])
+        for name, a, b in zip(["out", "out state", "out last_tm", "out last_cm"]
+                              + [f"grad {n}" for n in names], *runs):
+            share = ((a - b).abs().max() / (LM_GRAD_RTOL * b.abs().max()
+                                            + LM_GRAD_ATOL)).item()
+            if share > worst["share"][0]:
+                worst["share"] = (share, name)
+        worst["calls"] += 1
+        return out
+    with patched(rwkv6, "block", block):
+        yield
+
+
+def train_vs_cpu(torch, arch, cfg):
+    """The same f32 parameters and batch (S TRAIN_CPU_SEQ) through
+    ``Model.loss`` and its backward on the card and on the CPU (remat,
+    attention auto): the loss within LM_LOSS_TOL and every leaf's grads
+    within LM_GRAD_RTOL max|g| + LM_GRAD_ATOL.  Where END_TO_END says no
+    (rwkv6-3b), those are logged with their worst leaf, and held instead:
+    each block on its own inputs (``shadowed_blocks_on_cpu``), and end to
+    end what lies outside the blocks (``identity_blocks``).  Its blocks'
+    per-head group norms divide each head's WKV output by its spread over
+    the head's channels, which some heads with random weights barely have:
+    a rounding difference in a block's input, from the device or from the
+    scan's order alike, comes out amplified in the grads of the weights
+    that feed the WKV (u, wk, wr) of the blocks after it
+    (``tools/rwkv6_grad_drift.py`` reads it by depth)."""
+    from repro_torch import tree as T
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models.api import Model
+
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.float32, device="cuda")
+    batch = model.make_inputs(ShapeConfig("cpu", TRAIN_CPU_SEQ, 1, "train"),
+                              generator=torch.Generator(device="cuda").manual_seed(21),
+                              device="cuda")
+    p_cpu = T.tree_map(lambda t: t.detach().cpu(), params)
+    b_cpu = {k: v.cpu() for k, v in batch.items()}
+    keys = [k for k, _ in T.leaves_with_paths(params)]
+    what = f"phase 21 {arch} ({cfg.num_layers} layers) f32 B1 S{TRAIN_CPU_SEQ} card against CPU"
+
+    def on_both(path, label, hold):
+        l_card, g_card = loss_grads(torch, model, params, batch, path)
+        l_cpu, g_cpu = loss_grads(torch, model, p_cpu, b_cpu, path)
+        if hold:
+            require(abs(l_card - l_cpu) <= LM_LOSS_TOL,
+                    f"{label}: losses {l_card!r} and {l_cpu!r}")
+        worst = grads_held(label, keys, [g.cpu() for g in g_card], g_cpu, hold=hold)
+        return (f"losses {l_card:.6f} / {l_cpu:.6f} (|diff| {abs(l_card - l_cpu):.3e}); "
+                f"every leaf " + ("within" if hold else "LOGGED, not held, against")
+                + f" {LM_GRAD_RTOL} max|g| + {LM_GRAD_ATOL}; worst leaf {worst[1]} at "
+                f"{worst[0]:.3e} of its tolerance"), worst[0]
+
+    end_to_end = END_TO_END.get(arch, True)
+    held = ""
+    if not end_to_end:
+        blocks = {"calls": 0, "share": (0.0, "")}
+        with torch.no_grad(), shadowed_blocks_on_cpu(torch, blocks):
+            model.loss(params, batch, remat=False)
+        require(blocks["calls"] == cfg.num_layers and blocks["share"][0] <= 1,
+                f"{what}: a block on the CPU off the card's: {blocks}")
+        outside, _ = on_both({"remat": True, "blocks": "identity"},
+                             f"{what}, every block the identity", hold=True)
+        held = (f"; each of {blocks['calls']} blocks on its own inputs, CPU against card, "
+                f"forward and backward: worst at {blocks['share'][0]:.3e} of the tolerance "
+                f"({blocks['share'][1]}); outside the blocks (every block the identity), end "
+                f"to end: {outside}")
+    text, worst = on_both({"remat": True}, what, hold=end_to_end)
+    log(f"{what}: {text}{held}; {time.perf_counter() - t0:.1f} s")
+    del params, p_cpu
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_recipe(torch, arch, cfg, seq):
+    """The --full recipe's step on the card, the one ``train(smoke=False)``
+    runs (``train.trainer_step``: mesh-less on the world of one, the state
+    donated), on TRAIN_BATCH rows of ``seq`` tokens built as the trainer
+    builds them (``train.train_batch``), a
+    warm-up step and LM_TIMED_STEPS timed, the step's FLOPs counted by
+    ``torch.utils.flop_counter``; every loss finite (else the step and the first
+    leaf that is not are named), every leaf's first moment non-zero (its
+    gradient reached it) and every leaf changed that bf16 can move at these
+    learning rates.  The batches are built before the first step, so the
+    walls hold the steps alone.  Returns the step's numbers."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import tree as T
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.api import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.schedule import warmup_cosine
+
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    step = train_mod.trainer_step(model, seq, TRAIN_BATCH, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.bfloat16, device="cuda")
+    keys = [k for k, _ in T.leaves_with_paths(params)]
+    init = [p.to("cpu", copy=True) for p in T.leaves(params)]
+    opt = adamw_init(params)
+    data = token_batches(0, TRAIN_BATCH, seq, cfg.vocab_size)
+    t_init = time.perf_counter() - t0
+    batches = [train_mod.train_batch(cfg, torch.from_numpy(next(data)).to("cuda"), i, seq,
+                                     "cuda") for i in range(LM_TIMED_STEPS + 1)]
+    # FLOPs: the counter's python dispatch slows a step of the ssm and hybrid
+    # stacks' chunk loops ~5x (zamba2 at S 1024: 51 s against 11 on NVIDIA
+    # H100 80GB HBM3, 700.00 W), so there it counts one forward of the loss,
+    # and the step runs it, its recompute and a backward of twice its products
+    forward_only = cfg.family in ("ssm", "hybrid")
+    if forward_only:
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            model.loss(params, batches[0], remat=True, ce_chunk=512)
+        flops = 4 * fc.get_total_flops()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i, batch in enumerate(batches):
+        counted = i == 0 and not forward_only
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with FlopCounterMode(display=False) if counted else contextlib.nullcontext() as fc:
+            params, opt, metrics = step(params, opt, batch)
+            loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        if counted:
+            flops = fc.get_total_flops()
+        losses.append(loss)
+        if not math.isfinite(loss):
+            bad = next((k for k, p in zip(keys, T.leaves(params))
+                        if not bool(torch.isfinite(p).all())), None)
+            require(False, f"phase 21 {arch}: step {i} loss {loss}; first non-finite leaf {bad}")
+    peak = torch.cuda.max_memory_allocated()
+    positions = (seq if cfg.frontend == "vision" else seq - 1) * TRAIN_BATCH
+    lr_sum = sum(float(warmup_cosine(i, peak_lr=3e-4, warmup=200, total=10000))
+                 for i in range(LM_TIMED_STEPS + 1))
+    frozen, unmoved, silent = [], [], []
+    for k, p, p0, m in zip(keys, T.leaves(params), init, T.leaves(opt.mu)):
+        if not p.numel():                  # an empty stack (a segment of no units)
+            continue
+        if not bool((p != p0.to(p.device)).any()):
+            # half the bf16 spacing at each element (0 where the value is 0)
+            x = p0.float().abs()
+            half_ulp = torch.where(x > 0, torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 9),
+                                   0.0)
+            (frozen if bool((half_ulp > TRAIN_MOVE_BOUND * lr_sum).all())
+             else unmoved).append(k)
+        if not bool((m != 0).any()):
+            silent.append(k)
+    require(not unmoved, f"phase 21 {arch}: leaves left unchanged that bf16 could move: "
+            f"{unmoved}")
+    require(not silent, f"phase 21 {arch}: leaves no gradient reached: {silent}")
+    wall = statistics.median(walls[1:])
+    log(f"phase 21 {arch} ({cfg.num_layers} layers) --full recipe, bf16 params, f32 "
+        f"moments, B{TRAIN_BATCH} seq {seq} ({positions} positions): losses "
+        f"{[round(v, 4) for v in losses]}; median step wall {wall * 1e3:.1f} ms of "
+        f"{[round(w * 1e3, 1) for w in walls[1:]]} (warm-up "
+        f"{'' if forward_only else 'under the FLOP counter '}{walls[0] * 1e3:.1f} ms), "
+        f"{positions / wall:.0f} tokens/s, peak memory {peak / 1e9:.2f} GB, FLOPs a step "
+        f"{flops:.4g} (torch.utils.flop_counter{', 4x a forward' if forward_only else ''}) = "
+        f"{flops / wall / 1e12:.1f} TFLOP/s; leaves bf16 cannot move at lr sum "
+        f"{lr_sum:.3g} (unchanged, as expected): {frozen}; {time.perf_counter() - t0:.1f} s "
+        f"in all (init {t_init:.1f} s)")
+    del params, opt, step, init
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "tokens_per_s": positions / wall, "peak_gb": peak / 1e9,
+            "tflops": flops / wall / 1e12, "seq": seq, "layers": cfg.num_layers}
+
+
+def train_phase(torch):
+    """Phase 21: each family's f32 holds, its card-against-CPU hold where
+    TRAIN_CPU_LAYERS names it, then its --full recipe's steps; no kernel is
+    launched.  Returns the recipe's numbers by family."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        layers = TRAIN_LAYERS.get(arch, {})
+        train_holds(torch, arch, cut_config(arch, layers.get("f32")), TRAIN_HOLDS[arch])
+        if arch in TRAIN_CPU_LAYERS:
+            train_vs_cpu(torch, arch, cut_config(arch, TRAIN_CPU_LAYERS[arch]))
+        out[arch] = train_recipe(torch, arch, cut_config(arch, layers.get("bf16")),
+                                 TRAIN_SEQ[arch])
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 21 {arch}: {time.perf_counter() - t0:.1f} s")
+    launched = {k: n for k, n in launch_counts().items() if n}
+    require(not launched, f"phase 21: training launched kernels {launched}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 22
+# The port's five example scripts (examples/torch_*.py, the reference's
+# examples/*.py statement for statement) as a user runs them on the card:
+# each a subprocess at its defaults, and the two LM scripts again in process
+# with the wrappers' launch counts read around them.
+EXAMPLES = ROOT / "examples"
+EXAMPLE_RUNS = (("torch_quickstart", ()), ("torch_serve_dynamic_bandwidth", ()),
+                ("torch_llm_early_exit_serving", ()),
+                ("torch_llm_early_exit_serving", ("--dynamic",)),
+                ("torch_serve_fleet", ()), ("torch_train_branchy_alexnet", ()))
+# the runs in process, and the kernels each one's main path launches
+EXAMPLE_WRAPPED = (("torch_llm_early_exit_serving", ()), ("torch_serve_fleet", ()))
+EXAMPLE_KERNELS = {"torch_llm_early_exit_serving": ATTN_PATH,
+                   "torch_serve_fleet": ("flash_attention", "decode_attention")}
+
+
+def example_module(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_lines(name, args, text):
+    """Require the lines ``name`` promises in its output ``text``."""
+    import re
+    what = f"phase 22: {name} {' '.join(args)}".rstrip()
+    lines = text.splitlines()
+    if name == "torch_quickstart":
+        plans = [ln for ln in lines if re.match(r"\s+\d+ kbps: exit=\d", ln)]
+        require(len(plans) == 5 and any(ln.startswith("co-inference: exit=") for ln in lines),
+                f"{what}: plans {plans}")
+        return f"{len(plans)} plans"
+    if name == "torch_serve_dynamic_bandwidth":
+        slo = [ln for ln in lines if re.match(r"SLO attainment: \d+/120 ", ln)]
+        require(len(slo) == 1 and "configuration map: 428 bandwidth states" in lines,
+                f"{what}: {lines[-3:]}")
+        return slo[0]
+    if name == "torch_llm_early_exit_serving":
+        summary = [ln for ln in lines if ln.startswith("serving summary: {'requests': 12,")]
+        head = [re.search(r"conf=([\d.]+) entropy=([\d.]+) \(vs vocab max ([\d.]+)\)", ln)
+                for ln in lines if ln.startswith("fused exit-head on last prefill token:")]
+        require(len(summary) == 1 and len(head) == 1 and head[0],
+                f"{what}: {lines[-4:]}")
+        conf, ent, cap = (float(v) for v in head[0].groups())
+        require(0 < conf <= 1 and ent <= cap, f"{what}: conf {conf}, entropy {ent} of {cap}")
+        return f"conf {conf}, entropy {ent} <= {cap}"
+    if name == "torch_serve_fleet":
+        rows = [ln for ln in lines
+                if re.match(r"\s*\d+\s+\S+\s+\d+\s+-?\d+\s+\d+\s+[\d.]+\s+(True|False)\s*\[", ln)]
+        require(any(ln.startswith("fleet: 8 devices x 2 edges") for ln in lines)
+                and any(ln.startswith("SLO attainment:") for ln in lines) and len(rows) == 10,
+                f"{what}: {len(rows)} token rows")
+        return f"{len(rows)} token rows"
+    losses = [float(m.group(1)) for m in
+              (re.match(r"step +\d+ +joint loss ([\d.]+)", ln) for ln in lines) if m]
+    acc = [float(m.group(1)) for m in
+           (re.match(r"  exit \d: ([\d.]+) ", ln) for ln in lines) if m]
+    require(len(losses) == 6 and losses[-1] < losses[0] and len(acc) == 5
+            and all(0 <= a <= 1 for a in acc), f"{what}: losses {losses}, accuracy {acc}")
+    return f"joint loss {losses}, accuracy {acc}"
+
+
+def examples_phase(torch):
+    """Phase 22: every example script exits 0 on the card with its lines;
+    the LM scripts' wrapped runs launch each kernel of their path.
+    Returns the wrapped runs' launches."""
+    import io
+    import os
+    import shutil
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "phase22"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    shutil.rmtree(example_module("torch_train_branchy_alexnet").DEFAULT_CKPT_DIR,
+                  ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    try:
+        for i, (name, args) in enumerate(EXAMPLE_RUNS):
+            log_f = open(out / f"{i}.log", "w")
+            procs.append((name, args, log_f, subprocess.Popen(
+                [sys.executable, str(EXAMPLES / f"{name}.py"), *args], stdout=log_f,
+                stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))))
+        launches = {}
+        for name, args in EXAMPLE_WRAPPED:
+            mod = example_module(name)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = mod.main(list(args))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = launch_counts()
+            for k in EXAMPLE_KERNELS[name]:
+                require(counts[k] > 0, f"phase 22: {name} launched no {k}")
+            if "exit_head" in res:
+                eh = res["exit_head"]
+                require(0 < eh["conf"] <= 1 and eh["entropy"] <= res["log_vocab"],
+                        f"phase 22: {name} exit head {eh}")
+            log(f"phase 22: {name} in process: launches {counts}; wall {wall:.2f} s; "
+                f"summary {res['summary']}")
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+        for i, (name, args, log_f, p) in enumerate(procs):
+            rc = p.wait(timeout=600)
+            log_f.close()
+            text = (out / f"{i}.log").read_text()
+            require(rc == 0, f"phase 22: {name} {' '.join(args)} exited {rc}: {text[-2000:]}")
+            log(f"phase 22: {name} {' '.join(args)} exit 0 at {time.perf_counter() - t0:.1f} s "
+                f"into the phase: {example_lines(name, args, text)}")
+    finally:
+        for *_, log_f, p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log_f.close()
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(example_module("torch_train_branchy_alexnet").DEFAULT_CKPT_DIR,
+                  ignore_errors=True)
+    log(f"phase 22: took {time.perf_counter() - t0:.1f} s; launches of the wrapped runs "
+        f"{launches}")
+    return launches
 
 
 def main() -> int:
@@ -4003,6 +4668,19 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     log(f"chip_smoke: phase 20 took {time.perf_counter() - t20:.1f} s")
 
+    # -- 21 every family trained on the card; 22 the port's example scripts;
+    #    before any profiler session
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    trained = train_phase(torch)
+    t22 = time.perf_counter()
+    for name, n in examples_phase(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"chip_smoke: phase 21 took {t22 - t21:.1f} s, phase 22 "
+        f"{time.perf_counter() - t22:.1f} s; the --full recipe's steps by family "
+        f"{json.dumps(trained)}")
+
     arena_profile(torch, (LLAMA, ZAMBA))
     t_prof = time.perf_counter()
     lm_train_profile(torch, lm_walls)
@@ -4040,7 +4718,7 @@ def main() -> int:
                         **({"at_configs": at_configs[name]} if at_configs.get(name)
                            else {}),
                         **({"at_sim": at_sim[name]} if at_sim.get(name) else {})})
-    log(f"chip_smoke: phases 1-20 took {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-22 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -105,9 +105,13 @@ def make_train_step(model: Model, mesh, shape: ShapeConfig, *,
     (``{"tokens": [B, S+1]}``, with ``frames`` for the enc-dec and
     ``prefix_emb`` for the VLM).  The step works on leaves that require
     grad (parameters restored from a checkpoint do not, so it marks them)
-    and clears their grads when done; the returned parameters are new
-    tensors, the given ones are not changed.  ``ce_chunk`` is the CE's
-    slice (the reference accepts it and keeps ``softmax_xent``'s 512).
+    and clears their grads when done.  The step donates the parameters and
+    optimiser state it is given, as the reference's does
+    (``donate_argnums=(0, 1)``): :func:`adamw_update` writes the new values
+    into them (into their local shards under a mesh) and the step returns
+    them, so it holds one copy of the state.  A caller that needs the
+    state from before a step clones it.  ``ce_chunk`` is the CE's slice
+    (the reference accepts it and keeps ``softmax_xent``'s 512).
     ``seq_parallel`` redistributes the residual stream to the sequence
     split over ``model`` between blocks (dense, MoE and VLM stacks).
     The metrics are plain replicated scalars."""
@@ -140,14 +144,13 @@ def make_train_step(model: Model, mesh, shape: ShapeConfig, *,
                                          else _like(p.grad, p) for p in leaves])
             lr = warmup_cosine(opt_state.step, peak_lr=peak_lr, warmup=warmup,
                                total=total_steps)
-            new_params, new_opt = adamw_update(grads, opt_state, params, lr=lr)
+            new_params, new_opt = adamw_update(grads, opt_state, params, lr=lr,
+                                               donate=True)
         for p in leaves:
             p.grad = None
-        if mesh is not None:
-            new_params = distribute(new_params, p_sh, mesh)
-            new_opt = distribute(new_opt, o_sh, mesh)
-        return new_params, new_opt, {"loss": _full(metrics["loss"]).detach(),
-                                     "final_ce": _full(metrics["final_ce"]).detach()}
+        return (T.tree_map(torch.Tensor.detach, new_params), new_opt,
+                {"loss": _full(metrics["loss"]).detach(),
+                 "final_ce": _full(metrics["final_ce"]).detach()})
 
     def abstract_inputs():
         params = model.abstract_params()

@@ -2,18 +2,20 @@
 [--smoke | --full] [--device cuda]`` (the counterpart of
 ``src/repro/launch/train.py``).
 
-The step runs sharded on :func:`repro_torch.launch.mesh.make_host_mesh`,
-the ``(data, model)`` mesh over the world of the default process group (a
-world of one process when none is running: NCCL on the card, gloo for
-``--device cpu``).  ``--smoke`` (the default) trains the reduced config in
-float32 on it.  ``--full``, as the reference's, trains the full config in
+On a running world of more than one process the step runs sharded on
+:func:`repro_torch.launch.mesh.make_host_mesh`, the ``(data, model)`` mesh
+over that world; on a world of one (none running) it is the mesh-less step
+on ``--device``.  ``--smoke`` (the default) trains the reduced config in
+float32.  ``--full``, as the reference's, trains the full config in
 bfloat16 with float32 moments on the production mesh (16×16 over 256
 ranks), which one card cannot hold: it raises on any other world, and no
 smaller mesh is built in its place.  :func:`train` with ``smoke=False``
-trains the full config on the host mesh (``chip_smoke.py``'s phase 15 runs
-llama3.2-1b so on one card).  Either runs the whole stack: the train step
-(joint multi-exit loss, flash attention with its flash backward past
-1024² scores, per-unit recompute, chunked CE, AdamW), checkpoint/restart
+trains the full config with the same step (``chip_smoke.py``'s phase 15
+runs llama3.2-1b so on one card, and phase 21 times the step for the other
+five families).  Either runs the whole stack: the train step (joint
+multi-exit loss, flash attention with its flash backward past 1024²
+scores, per-unit recompute, chunked CE, AdamW on the donated state),
+checkpoint/restart
 with auto-resume, and failure injection for drills.  The state is kept
 whole between steps (a sharded step's outputs are gathered), as the
 reference's checkpoint manager gathers it to the host.
@@ -26,6 +28,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpointing import CheckpointManager
 from repro_torch.config import ShapeConfig
@@ -68,31 +71,54 @@ def train_batch(cfg, tokens, step: int, seq: int, device):
     return batch
 
 
-def train(arch="llama3.2-1b", *, smoke=True, steps=200, batch=8, seq=64,
-          ckpt_dir=DEFAULT_CKPT_DIR, save_every=50, inject_failure_at=None,
-          device="cuda", production_mesh=False):
-    """Train ``arch`` for ``steps`` steps on batches of ``batch`` sequences
-    of ``seq`` tokens (the model sees ``seq - 1``) on the host mesh, or on
-    the production mesh with ``production_mesh`` (``--full``; it raises
-    off a world of 256).  Returns ``{"params", "opt", "losses", "info",
-    "seconds"}``: the final state (whole tensors), the loss of every step
-    run (replays included), the loop's restarts and final step, and the
-    loop's wall time."""
+def trainer_step(model, seq, batch, *, device="cuda", production_mesh=False):
+    """The step :func:`train` runs on batches of ``batch`` sequences of
+    ``seq`` tokens: ``make_train_step(remat=True, ce_chunk=min(512,
+    seq))``, which donates the state it is given.  With
+    ``production_mesh`` it runs on the production mesh, on a running world
+    of more than one process on the host mesh, its parameters and
+    optimiser state gathered whole after each step; on a world of one it
+    is the mesh-less step on ``device`` (a mesh of one device shards
+    nothing, and DTensor's dispatch would cost host time on every op)."""
     dev = resolve(device)
-    mesh = (make_production_mesh(device=dev) if production_mesh
-            else make_host_mesh(device=dev))
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    model = Model(cfg)
-    shape = ShapeConfig("cli", seq, batch, "train")
-    sharded, _ = make_train_step(model, mesh, shape, remat=True, ce_chunk=min(512, seq))
+    if production_mesh:
+        mesh = make_production_mesh(device=dev)
+    elif dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_host_mesh(device=dev)
+    else:
+        mesh = None
+    sharded, _ = make_train_step(model, mesh, ShapeConfig("cli", seq, batch, "train"),
+                                 remat=True, ce_chunk=min(512, seq), device=dev)
 
     def step(params, opt, batch):
         params, opt, metrics = sharded(params, opt, batch)
         return T.tree_map(_whole, params), T.tree_map(_whole, opt), metrics
-    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
-                               dtype=torch.float32 if smoke else torch.bfloat16,
-                               device=dev)
-    opt = adamw_init(params)
+    return step
+
+
+def train(arch="llama3.2-1b", *, smoke=True, steps=200, batch=8, seq=64,
+          ckpt_dir=DEFAULT_CKPT_DIR, save_every=50, inject_failure_at=None,
+          device="cuda", production_mesh=False):
+    """Train ``arch`` for ``steps`` steps on batches of ``batch`` sequences
+    of ``seq`` tokens (the model sees ``seq - 1``) with
+    :func:`trainer_step`, on the production mesh with ``production_mesh``
+    (``--full``; it raises off a world of 256).
+    Returns ``{"params", "opt", "losses", "info", "seconds"}``: the final
+    state (whole tensors), the loss of every step run (replays included),
+    the loop's restarts and final step, and the loop's wall time (the
+    initial state's making included)."""
+    dev = resolve(device)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    model = Model(cfg)
+    step = trainer_step(model, seq, batch, device=dev, production_mesh=production_mesh)
+
+    def fresh():
+        """The initial state, made anew for a cold restart: the step
+        donates the one it was given."""
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                                   dtype=torch.float32 if smoke else torch.bfloat16,
+                                   device=dev)
+        return params, adamw_init(params)
     data = token_batches(0, batch, seq, cfg.vocab_size)
 
     loop = ResilientLoop(CheckpointManager(str(ckpt_dir)), save_every=save_every)
@@ -111,7 +137,8 @@ def train(arch="llama3.2-1b", *, smoke=True, steps=200, batch=8, seq=64,
         return params, opt
 
     t0 = time.perf_counter()
-    (params, opt), info = loop.run((params, opt), step_fn, steps, injector=injector,
+    # no name keeps the initial state: a cold restart makes it anew in its place
+    (params, opt), info = loop.run(fresh(), step_fn, steps, injector=injector, fresh=fresh,
                                    on_restart=lambda s: print(f"[restart] resumed at step {s}"))
     return {"params": params, "opt": opt, "losses": losses, "info": info,
             "seconds": time.perf_counter() - t0}

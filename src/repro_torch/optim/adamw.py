@@ -3,17 +3,46 @@
 standard large-model memory trick); every update computes in float32 and
 casts back to each leaf's dtype, as the reference does.
 
-The update is functional: it returns new parameters and a new state and
-changes neither argument.  The step count stays on the parameters' device,
-so an update never waits on the host.
+The update is functional unless the caller donates its arguments
+(``donate=True``, the counterpart of the reference's ``donate_argnums``):
+then it writes the new values into them.  The train step donates, so it
+holds one copy of the state.  The step count stays on the parameters'
+device, so an update never waits on the host.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as T
+
+
+#: elements an update computes at once: its float32 temporaries stay a few
+#: hundred MB whatever the leaf (an embedding of 1e9 elements would otherwise
+#: take ~20 GB of them)
+UPDATE_SLICE = 1 << 24
+
+
+def _whole(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _slices(t):
+    """``t`` as views of at most UPDATE_SLICE elements each, split along
+    its leading dims (the leaf's layout does not matter)."""
+    if t.ndim <= 1 or t.numel() <= UPDATE_SLICE:
+        return t.split(UPDATE_SLICE) if t.ndim else (t,)
+    inner = math.prod(t.shape[1:])
+    if inner > UPDATE_SLICE:
+        return [s for row in t for s in _slices(row)]
+    return t.split(UPDATE_SLICE // inner)
 
 
 class AdamWState(NamedTuple):
@@ -35,24 +64,32 @@ def adamw_init(params, moment_dtype=torch.float32) -> AdamWState:
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1, grad_clip=1.0):
+                 eps=1e-8, weight_decay=0.1, grad_clip=1.0, donate=False):
     """Returns (new_params, new_state): the global-norm clip over every
     leaf, then AdamW.  ``lr`` is a float or a 0-d tensor.  Each constant
     meets the float32 values as the reference's weakly typed scalars do:
     rounded to float32 first, and the bias corrections ``1 - b ** step``
-    are taken in float32."""
+    are taken in float32.  The new values are computed UPDATE_SLICE
+    elements at a time and written into ``params`` and the moments of
+    ``state`` with ``donate``, into copies of them without; element by
+    element the arithmetic is the same either way.  DTensor leaves are
+    updated on their local shards (parameters, grads and moments in the
+    same placements, as the train step lays them out)."""
+    if not donate:
+        params, state = T.tree_map(torch.clone, (params, state))
     flat_p = T.leaves(params)
     flat_g, flat_m, flat_v = T.leaves(grads), T.leaves(state.mu), T.leaves(state.nu)
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("params, grads and moments must be congruent trees")
-    dev = state.step.device
+    dev = _local(state.step).device
     f32 = dict(dtype=torch.float32, device=dev)
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat_g))
     # a tensor numerator: `float / tensor` is a reciprocal and a product
-    scale = torch.clamp(torch.tensor(grad_clip, **f32) / (gnorm + 1e-9), max=1.0)
+    scale = _whole(torch.clamp(torch.tensor(grad_clip, **f32) / (gnorm + 1e-9), max=1.0))
     step = state.step + 1
-    b1c = 1 - torch.pow(torch.tensor(b1, **f32), step.float())
-    b2c = 1 - torch.pow(torch.tensor(b2, **f32), step.float())
+    b1c = _whole(1 - torch.pow(torch.tensor(b1, **f32), step.float()))
+    b2c = _whole(1 - torch.pow(torch.tensor(b2, **f32), step.float()))
+    lr = _whole(lr)
 
     def upd(p, g, m, v):
         g = g.float() * scale
@@ -64,7 +101,8 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
         newp = p.float() - lr * update
         return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
 
-    out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
-    return (T.unflatten(params, [o[0] for o in out]),
-            AdamWState(step=step, mu=T.unflatten(state.mu, [o[1] for o in out]),
-                       nu=T.unflatten(state.nu, [o[2] for o in out])))
+    for leaf in zip(flat_p, flat_g, flat_m, flat_v):
+        for p, g, m, v in zip(*(_slices(_local(t)) for t in leaf)):
+            for dst, new in zip((p, m, v), upd(p, g, m, v)):
+                dst.copy_(new)
+    return params, AdamWState(step=step, mu=state.mu, nu=state.nu)

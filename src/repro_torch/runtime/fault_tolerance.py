@@ -53,10 +53,14 @@ class ResilientLoop:
     def run(self, state: Any, step_fn: Callable[[Any, int], Any],
             num_steps: int, start_step: int = 0,
             injector: Optional[FailureInjector] = None,
-            on_restart: Optional[Callable[[int], None]] = None):
+            on_restart: Optional[Callable[[int], None]] = None,
+            fresh: Optional[Callable[[], Any]] = None):
+        """``fresh`` makes the state of ``start_step`` anew for a cold
+        restart, for a ``step_fn`` that overwrites the state it is given (a
+        donating train step); without it the loop keeps ``state``."""
         restarts = 0
         step = start_step
-        initial = state
+        initial = state if fresh is None else None
         # resume if a checkpoint exists
         latest = self.ckpt.latest_step()
         if latest is not None and latest > step:
@@ -74,8 +78,9 @@ class ResilientLoop:
                 if restarts > self.max_restarts:
                     raise
                 latest = self.ckpt.latest_step()
-                if latest is None:
-                    state, step = initial, start_step   # cold restart
+                if latest is None:                      # cold restart
+                    state = None                        # freed before a fresh one is made
+                    state, step = initial if fresh is None else fresh(), start_step
                 else:
                     state, step = self.ckpt.restore(state)
                 if on_restart:

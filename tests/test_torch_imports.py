@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py`` and not the port's timing tools (``tools/*_timing.py``)
-import JAX or anything of the JAX package ``repro``."""
+``chip_smoke.py``, not the port's example scripts (``examples/torch_*.py``)
+and not the port's timing tools (``tools/*_timing.py``,
+``tools/rwkv6_grad_drift.py``) import JAX or anything of the JAX package
+``repro``."""
 import ast
 import os
 import subprocess
@@ -15,7 +17,9 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py"))
 FILES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "tools").glob("*_timing.py")))
+         + sorted((ROOT / "examples").glob("torch_*.py"))
+         + sorted((ROOT / "tools").glob("*_timing.py"))
+         + [ROOT / "tools" / "rwkv6_grad_drift.py"])
 
 
 def _imported_names(path: Path):
