@@ -1,0 +1,7 @@
+"""flash_attention_roofline (%, kernels): the least time of every ``flash_attention`` call (from its
+arguments) over the device time of the kernels launched inside the calls."""
+from portbench.harness.readers import roofline
+
+
+def read(run):
+    return roofline(run, "flash_attention")
