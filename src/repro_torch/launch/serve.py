@@ -51,6 +51,40 @@ def refusal(cfg, on_card: bool, card_bytes: int):
     return None
 
 
+def build(arch: str, device, *, batch: int = 4, slo_ms: float = 400.0,
+          dynamic: bool = False, trace: str = "dcn"):
+    """``(cfg, engine)``: the engine :func:`main` serves with on ``device``
+    (the full config in bfloat16 on the card, the smoke config in float32
+    on the CPU), or SystemExit with :func:`refusal`'s reason."""
+    on_card = device.type == "cuda"
+    cfg = get_config(arch) if on_card else get_smoke_config(arch)
+    card_bytes = torch.cuda.get_device_properties(device).total_memory if on_card else 0
+    why = refusal(cfg, on_card, card_bytes)
+    if why is not None:
+        raise SystemExit(f"cannot serve --arch {arch}: {why}")
+    dtype = torch.bfloat16 if on_card else torch.float32
+    model = Model(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init_params(gen, dtype=dtype, device=device)
+
+    # tiers: edge = 8-card slice, device = 1 card; full-size graph for
+    # virtual timing, the served model for token values
+    graph = lm_graph(get_config(arch), batch=batch, seq=1)
+    f_edge = RooflineLatencyModel(chips=8, efficiency=0.4)
+    f_device = RooflineLatencyModel(chips=1, efficiency=0.4)
+    planner = EdgentPlanner(graph, latency_req_s=slo_ms / 1e3)
+    planner.with_models(f_edge, f_device)
+    bw = dcn_trace(0, 2048) if trace == "dcn" else belgium_lte_like(0, 2048)
+    if dynamic:
+        hist = [bw[i : i + 49] for i in range(0, 980, 49)]
+        planner.offline_dynamic(hist)
+    link = Link(trace_bps=bw)
+
+    engine = ServingEngine(model, params, graph, planner, link,
+                           batch_size=batch, dynamic=dynamic, dtype=dtype)
+    return cfg, engine
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
@@ -64,34 +98,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve(args.device)
-    on_card = device.type == "cuda"
-    cfg = get_config(args.arch) if on_card else get_smoke_config(args.arch)
-    card_bytes = torch.cuda.get_device_properties(device).total_memory if on_card else 0
-    why = refusal(cfg, on_card, card_bytes)
-    if why is not None:
-        raise SystemExit(f"cannot serve --arch {args.arch}: {why}")
-    dtype = torch.bfloat16 if on_card else torch.float32
-    model = Model(cfg)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = model.init_params(gen, dtype=dtype, device=device)
-
-    # tiers: edge = 8-card slice, device = 1 card; full-size graph for
-    # virtual timing, the served model for token values
-    graph = lm_graph(get_config(args.arch), batch=args.batch, seq=1)
-    f_edge = RooflineLatencyModel(chips=8, efficiency=0.4)
-    f_device = RooflineLatencyModel(chips=1, efficiency=0.4)
-    planner = EdgentPlanner(graph, latency_req_s=args.slo_ms / 1e3)
-    planner.with_models(f_edge, f_device)
-    trace = (dcn_trace(0, 2048) if args.trace == "dcn"
-             else belgium_lte_like(0, 2048))
-    if args.dynamic:
-        hist = [trace[i : i + 49] for i in range(0, 980, 49)]
-        planner.offline_dynamic(hist)
-    link = Link(trace_bps=trace)
-
-    engine = ServingEngine(model, params, graph, planner, link,
-                           batch_size=args.batch, dynamic=args.dynamic,
-                           dtype=dtype)
+    cfg, engine = build(args.arch, device, batch=args.batch, slo_ms=args.slo_ms,
+                        dynamic=args.dynamic, trace=args.trace)
     rs = np.random.default_rng(0)
     reqs = [Request(rid=i,
                     prompt=rs.integers(0, cfg.vocab_size, 12).astype(np.int32),
@@ -99,7 +107,7 @@ def main(argv=None):
                     slo_s=args.slo_ms / 1e3)
             for i in range(args.requests)]
     stats = engine.serve(reqs)
-    print(f"served {cfg.name} on {device} in {dtype}")
+    print(f"served {cfg.name} on {device} in {engine.dtype}")
     print("summary:", stats.summary())
     return stats
 

@@ -21,6 +21,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import encdec, ssm_stack, transformer
 from repro_torch.models.encdec import AUDIO_DIM
 from repro_torch.models.transformer import VIS_DIM
+from repro_torch.obs import spans
 
 
 EXIT_LOSS_WEIGHT = 0.3  # BranchyNet-style joint loss: side exits weighted
@@ -182,12 +183,14 @@ class Model:
     def prefill(self, params, tokens, cache, *, frames=None, prefix_emb=None,
                 impl="kernel", moe_dispatch="einsum"):
         cfg = self.cfg
-        if self.stack is encdec:
-            return encdec.prefill(cfg, params, tokens, cache, frames, impl=impl)
-        if self.stack is ssm_stack:
-            return ssm_stack.prefill(cfg, params, tokens, cache, impl=impl)
-        return transformer.prefill(cfg, params, tokens, cache, prefix_emb, impl=impl,
-                                   moe_dispatch=moe_dispatch)
+        with spans.span("model.prefill", {"B": tokens.shape[0], "S": tokens.shape[1]}) \
+                if spans.on() else spans.OFF:
+            if self.stack is encdec:
+                return encdec.prefill(cfg, params, tokens, cache, frames, impl=impl)
+            if self.stack is ssm_stack:
+                return ssm_stack.prefill(cfg, params, tokens, cache, impl=impl)
+            return transformer.prefill(cfg, params, tokens, cache, prefix_emb, impl=impl,
+                                       moe_dispatch=moe_dispatch)
 
     def decode_step(self, params, cache, tokens, pos, *, exit_point=None,
                     with_exit_confidence=False, impl="kernel", mask=None,
@@ -197,16 +200,28 @@ class Model:
         reference.  ``mask`` ([B] bool) commits the cache writes of its
         rows only (the arena's masked commit)."""
         cfg = self.cfg
-        if self.stack is encdec:
-            return encdec.decode_step(cfg, params, cache, tokens, pos,
-                                      exit_point=exit_point, impl=impl, mask=mask)
-        if self.stack is ssm_stack:
-            return ssm_stack.decode_step(cfg, params, cache, tokens, pos,
-                                         exit_point=exit_point, impl=impl, mask=mask)
-        return transformer.decode_step(cfg, params, cache, tokens, pos,
-                                       exit_point=exit_point,
-                                       with_exit_confidence=with_exit_confidence,
-                                       impl=impl, mask=mask, moe_dispatch=moe_dispatch)
+        with self._decode_span(exit_point) if spans.on() else spans.OFF:
+            if self.stack is encdec:
+                return encdec.decode_step(cfg, params, cache, tokens, pos,
+                                          exit_point=exit_point, impl=impl, mask=mask)
+            if self.stack is ssm_stack:
+                return ssm_stack.decode_step(cfg, params, cache, tokens, pos,
+                                             exit_point=exit_point, impl=impl, mask=mask)
+            return transformer.decode_step(cfg, params, cache, tokens, pos,
+                                           exit_point=exit_point,
+                                           with_exit_confidence=with_exit_confidence,
+                                           impl=impl, mask=mask, moe_dispatch=moe_dispatch)
+
+    def _decode_span(self, exit_point):
+        """The ``model.decode_step`` span of a step that stops at
+        ``exit_point``, counting the segments and layers it runs."""
+        segs = self.segment_lengths()
+        run = len(segs) if exit_point is None else exit_point + 1
+        layers = sum(segs[:run]) * (self.cfg.num_layers // sum(segs))
+        return spans.span("model.decode_step", {"exit": run - 1, "layers": layers},
+                          {"model.decode_layers": layers,
+                           "model.decode_segments_run": run,
+                           "model.decode_segments_available": len(segs)})
 
     def logits(self, params, hidden):
         return L.logits(params["embed"], hidden)

@@ -28,6 +28,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _attn_shard_flags, _units
+from repro_torch.obs import spans
 from repro_torch.tree import P
 
 AUDIO_DIM = 1024  # stub frontend embedding width (== d_model for seamless)
@@ -232,9 +233,10 @@ def prefill(cfg: ModelConfig, params, tokens, cache, frames, *, impl="kernel"):
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     cross_k, cross_v = [], []
     for si, segp in enumerate(params["segments"]):
-        ck, cv = _cross_kv(cfg, segp["xattn"], memory)
-        x = _dec_segment(cfg, segp, x, positions, ck, cv, impl=impl,
-                         seg_cache=cache["self"][si], cache_pos=0, prefill_mode=True)
+        with spans.segment(si, segment_lengths(cfg)[si]) if spans.on() else spans.OFF:
+            ck, cv = _cross_kv(cfg, segp["xattn"], memory)
+            x = _dec_segment(cfg, segp, x, positions, ck, cv, impl=impl,
+                             seg_cache=cache["self"][si], cache_pos=0, prefill_mode=True)
         cross_k.append(ck.to(cache["cross_k"][si].dtype))
         cross_v.append(cv.to(cache["cross_v"][si].dtype))
     cache["cross_k"], cache["cross_v"] = tuple(cross_k), tuple(cross_v)
@@ -264,10 +266,11 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     segs = segment_lengths(cfg)
     n_seg = len(segs) if exit_point is None else exit_point + 1
     for si in range(n_seg):
-        x = _dec_segment(cfg, params["segments"][si], x, positions,
-                         cache["cross_k"][si], cache["cross_v"][si], impl=impl,
-                         seg_cache=cache["self"][si], cache_pos=pos, lengths=lengths,
-                         cross_lengths=cross_lengths, write_mask=mask)
+        with spans.segment(si, segs[si]) if spans.on() else spans.OFF:
+            x = _dec_segment(cfg, params["segments"][si], x, positions,
+                             cache["cross_k"][si], cache["cross_v"][si], impl=impl,
+                             seg_cache=cache["self"][si], cache_pos=pos, lengths=lengths,
+                             cross_lengths=cross_lengths, write_mask=mask)
     norm = params["final_norm"] if exit_point in (None, len(segs) - 1) \
         else params["exit_norms"][n_seg - 1]
     h = L.rms_norm(x, norm, cfg.norm_eps)

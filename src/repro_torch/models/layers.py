@@ -34,6 +34,7 @@ from repro_torch.config import ModelConfig
 from repro_torch import spmd
 from repro_torch.tree import P
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.obs import spans
 
 NEG_INF = -1e30
 IMPLS = ("kernel", "auto", "flash", "flash_novjp", "dense")
@@ -458,7 +459,9 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
             T = k.shape[1]
             if lengths is None:
                 lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
-            out = _mask_pad_heads(fa_ops.decode_attention(q, k, v, lengths), h)
+            with spans.span("kernel.decode_attention") if spans.on() else spans.OFF:
+                out = fa_ops.decode_attention(q, k, v, lengths)
+            out = _mask_pad_heads(out, h)
             return out.reshape(B, S, h * hd) @ p["wo"], None
     else:
         k = spmd.split_dim(xn @ p["wk"], -1, kv_h).reshape(B, S, kv_h, hd)
@@ -488,14 +491,16 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
             if impl == "kernel":
                 if lengths is None:
                     lengths = decode_lengths(cache_pos, B, x.device)
-                out = fa_ops.decode_attention(q, ck, cv, lengths)
+                with spans.span("kernel.decode_attention") if spans.on() else spans.OFF:
+                    out = fa_ops.decode_attention(q, ck, cv, lengths)
             else:
                 out = _core(_sdpa, q, ck, cv, _decode_bias(cache_pos, S, T, x.device))
             out = _mask_pad_heads(out, h)
             return out.reshape(B, S, h * hd) @ p["wo"], new_cache
     impl, blk = _resolve_impl(impl, S, k.shape[1])
     if impl == "kernel":
-        out = fa_ops.flash_attention(q, k, v, causal=causal)
+        with spans.span("kernel.flash_attention") if spans.on() else spans.OFF:
+            out = fa_ops.flash_attention(q, k, v, causal=causal)
     elif impl == "flash":
         out = _core(lambda q, k, v: flash_attention_fused(q, k, v, causal, blk, blk),
                     q, k, v)

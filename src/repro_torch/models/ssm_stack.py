@@ -30,6 +30,7 @@ from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import rwkv6 as R6
+from repro_torch.obs import spans
 from repro_torch.tree import P
 
 
@@ -250,22 +251,23 @@ def _stack_forward(cfg, params, x, cache, *, mode, exit_point=None,
     app_off = 0
     for si in range(n_seg):
         segp = params["segments"][si]
-        if cfg.family == "ssm":
-            x, nst = _run_rwkv_segment(cfg, segp, x, cache["segments"][si],
-                                       mode=mode, impl=impl, remat=remat,
-                                       chunk=chunk)
-        else:
-            napp = segs[si] // cfg.hybrid_attn_period
-            shared = None
-            if "shared_k" in cache:
-                shared = (cache["shared_k"][app_off:app_off + napp],
-                          cache["shared_v"][app_off:app_off + napp])
-            x, nst = _run_mamba_segment(cfg, params, segp, x, cache["segments"][si],
-                                        shared, positions, mode=mode, impl=impl,
-                                        cache_pos=cache_pos, prefill_mode=prefill_mode,
-                                        write_mask=write_mask, remat=remat,
-                                        chunk=chunk)
-            app_off += napp
+        with spans.segment(si, segs[si]) if spans.on() else spans.OFF:
+            if cfg.family == "ssm":
+                x, nst = _run_rwkv_segment(cfg, segp, x, cache["segments"][si],
+                                           mode=mode, impl=impl, remat=remat,
+                                           chunk=chunk)
+            else:
+                napp = segs[si] // cfg.hybrid_attn_period
+                shared = None
+                if "shared_k" in cache:
+                    shared = (cache["shared_k"][app_off:app_off + napp],
+                              cache["shared_v"][app_off:app_off + napp])
+                x, nst = _run_mamba_segment(cfg, params, segp, x, cache["segments"][si],
+                                            shared, positions, mode=mode, impl=impl,
+                                            cache_pos=cache_pos, prefill_mode=prefill_mode,
+                                            write_mask=write_mask, remat=remat,
+                                            chunk=chunk)
+                app_off += napp
         new_segments[si] = nst
         is_last = si == n_seg - 1
         if not is_last and cfg.num_exits and collect_exits:

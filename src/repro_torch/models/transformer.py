@@ -35,6 +35,7 @@ from repro_torch.kernels.exit_head import ops as eh_ops
 from repro_torch.kernels.exit_head import ref as eh_ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.obs import spans
 from repro_torch import spmd
 from repro_torch.tree import P
 
@@ -343,9 +344,10 @@ def prefill(cfg: ModelConfig, params, tokens, cache, prefix_emb=None, *,
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for si, segp in enumerate(params["segments"]):
-        x, _, _ = _run_segment(cfg, segp, x, positions, impl=impl,
-                               seg_cache=cache[si], cache_pos=0, prefill_mode=True,
-                               moe_dispatch=moe_dispatch)
+        with spans.segment(si, segment_lengths(cfg)[si]) if spans.on() else spans.OFF:
+            x, _, _ = _run_segment(cfg, segp, x, positions, impl=impl,
+                                   seg_cache=cache[si], cache_pos=0, prefill_mode=True,
+                                   moe_dispatch=moe_dispatch)
     h = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
     return h, cache
 
@@ -380,14 +382,16 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     confs = []
     head = eh_ops.exit_confidence if impl == "kernel" else eh_ref.exit_confidence
     for si in range(n_seg):
-        x, _, _ = _run_segment(cfg, params["segments"][si], x, positions,
-                               impl=impl, seg_cache=cache[si], cache_pos=pos,
-                               lengths=lengths, write_mask=mask,
-                               moe_dispatch=moe_dispatch)
+        with spans.segment(si, segs[si]) if spans.on() else spans.OFF:
+            x, _, _ = _run_segment(cfg, params["segments"][si], x, positions,
+                                   impl=impl, seg_cache=cache[si], cache_pos=pos,
+                                   lengths=lengths, write_mask=mask,
+                                   moe_dispatch=moe_dispatch)
         is_last = si == n_seg - 1
         if with_exit_confidence and not is_last and cfg.num_exits:
             h = L.rms_norm(x, params["exit_norms"][si], cfg.norm_eps)
-            confs.append(head(h, params["embed"]))
+            with spans.span("kernel.exit_head") if spans.on() else spans.OFF:
+                confs.append(head(h, params["embed"]))
     norm = params["final_norm"] if exit_point in (None, len(segs) - 1) \
         else params["exit_norms"][n_seg - 1]
     h = L.rms_norm(x, norm, cfg.norm_eps)

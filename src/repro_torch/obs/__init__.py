@@ -16,6 +16,10 @@ All of it reads virtual time or host clocks and imports neither torch nor
 the card.  ``python -m repro_torch.obs report FILE`` renders either
 artifact as a terminal dashboard; ``python -m repro_torch.obs validate
 FILE`` is the structural trace check.
+
+:mod:`repro_torch.obs.spans`, imported on its own (it imports torch), is the
+serving engine's counterpart on the real clock: spans in ``torch.profiler``'s
+trace and counts in a registry, recorded while a profiler session records.
 """
 from repro_torch.obs.profile import SimProfiler
 from repro_torch.obs.registry import (Counter, CounterFamily, Gauge, Histogram,

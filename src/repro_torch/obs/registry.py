@@ -162,6 +162,10 @@ class MetricsRegistry:
     def __contains__(self, name: str) -> bool:
         return name in self._instruments
 
+    def clear(self) -> None:
+        """Drop every instrument."""
+        self._instruments.clear()
+
     def snapshot(self) -> Dict:
         """Export every instrument's current state as plain data (counters/
         gauges -> value, families -> sorted dict, histograms -> count/mean/

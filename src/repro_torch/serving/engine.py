@@ -50,6 +50,7 @@ from repro_torch.core.planner import EdgentPlanner
 from repro_torch.kernels.exit_head import ops as eh_ops
 from repro_torch.kernels.exit_head import ref as eh_ref
 from repro_torch.models.api import Model
+from repro_torch.obs import spans
 from repro_torch.serving.arena import cache_sig, pow2, tree_map
 from repro_torch.serving.scheduler import SLOScheduler, pick_exit
 from repro_torch.serving.tiers import Link
@@ -654,7 +655,9 @@ class CoInferenceStepper:
         reference's argmax over the logits."""
         head = (eh_ops.exit_confidence if self.impl == "kernel"
                 else eh_ref.exit_confidence)
-        return head(h, params["embed"])["token"][:, -1:]
+        with spans.span("kernel.exit_head") if spans.on() else spans.OFF:
+            out = head(h, params["embed"])
+        return out["token"][:, -1:]
 
 
 class ServingEngine:
@@ -682,10 +685,14 @@ class ServingEngine:
         self.stepper = CoInferenceStepper(model, graph, planner,
                                           dynamic=dynamic, impl=impl)
         self.last_hidden: Optional[torch.Tensor] = None
+        self._t_serve: Optional[int] = None
 
     # ------------------------------------------------------------ serve
     def serve(self, requests: List[Request]) -> ServeStats:
         stats = ServeStats()
+        # the host clock at entry, read only while recording: each request's
+        # first-token time counts from here
+        self._t_serve = spans.clock() if spans.on() else None
         for r in requests:
             self.sched.submit(r.rid, r.deadline_s, r.arrival_s)
         reqs = {r.rid: r for r in requests}
@@ -701,21 +708,33 @@ class ServingEngine:
 
     def _serve_batch(self, batch: List[Request], stats: ServeStats,
                      start_s: float = 0.0) -> float:
+        lens = [len(r.prompt) for r in batch] if spans.on() else None
+        # the padding: the requests' prompt positions, and the B x S a prefill computes
+        with spans.span("engine.batch", {"B": len(lens), "S": max(lens), "prompt": sum(lens)},
+                        {"engine.prompt_positions": sum(lens),
+                         "engine.positions_computed": len(lens) * max(lens)}) \
+                if lens else spans.OFF:
+            return self._run_batch(batch, stats, start_s)
+
+    def _run_batch(self, batch: List[Request], stats: ServeStats,
+                   start_s: float) -> float:
         B = len(batch)
         prompt_len = max(len(r.prompt) for r in batch)
-        toks = np.zeros((B, prompt_len), np.int32)
-        for i, r in enumerate(batch):
-            toks[i, -len(r.prompt):] = r.prompt            # left-pad
         max_new = max(r.max_new_tokens for r in batch)
-        cache = self.model.init_cache(B, prompt_len + max_new + 1,
-                                      dtype=self.dtype, device=self.device)
+        with spans.span("engine.setup") if spans.on() else spans.OFF:
+            toks = np.zeros((B, prompt_len), np.int32)
+            for i, r in enumerate(batch):
+                toks[i, -len(r.prompt):] = r.prompt            # left-pad
+            cache = self.model.init_cache(B, prompt_len + max_new + 1,
+                                          dtype=self.dtype, device=self.device)
+            toks = torch.from_numpy(toks).to(self.device)
         # ---- plan at batch start
-        bw = self.link.current()
-        plan = self.stepper.plan(bw)
+        with spans.span("engine.plan") if spans.on() else spans.OFF:
+            bw = self.link.current()
+            plan = self.stepper.plan(bw)
         clock = start_s
         # prefill (virtual time: prefill ~ prompt_len * step cost; value: real)
-        h, cache = self.stepper.prefill_fn()(
-            self.params, torch.from_numpy(toks).to(self.device), cache)
+        h, cache = self.stepper.prefill_fn()(self.params, toks, cache)
         clock += self.stepper.step_time(plan.exit_point, plan.partition, bw) * \
             max(1, prompt_len // 8)
         next_tok = self.stepper.next_token(self.params, h)
@@ -725,16 +744,24 @@ class ServingEngine:
         budget = min(r.deadline_s for r in batch)
         exit_point = plan.exit_point
         for step in range(max_new):
-            bw = self.link.current()
-            if self.demote:
-                per_exit = self.stepper.per_exit_times(plan.partition, bw)
-                exit_point = self.stepper.choose_exit(
-                    budget - clock, per_exit, max_new - step, plan.exit_point)
-            t_step = self.stepper.step_time(exit_point, plan.partition, bw)
+            with spans.span("engine.plan") if spans.on() else spans.OFF:
+                bw = self.link.current()
+                if self.demote:
+                    per_exit = self.stepper.per_exit_times(plan.partition, bw)
+                    exit_point = self.stepper.choose_exit(
+                        budget - clock, per_exit, max_new - step, plan.exit_point)
+                t_step = self.stepper.step_time(exit_point, plan.partition, bw)
             fn = self.stepper.decode_fn(exit_point)
             h, cache = fn(self.params, cache, next_tok, prompt_len + step)
             next_tok = self.stepper.next_token(self.params, h)
-            host_tok = next_tok[:, 0].tolist()
+            with spans.span("engine.token_read") if spans.on() else spans.OFF as sp:
+                host_tok = next_tok[:, 0].tolist()
+            if step == 0 and sp is not None and self._t_serve is not None:
+                # this read holds every request's first generated token
+                t = (sp.t1 - self._t_serve) * 1e-9
+                for r in batch:
+                    if r.max_new_tokens:
+                        spans.REGISTRY.histogram("engine.first_token_s").observe(t)
             for i in range(B):
                 if step < batch[i].max_new_tokens:
                     out_tokens[i].append(host_tok[i])
