@@ -254,6 +254,20 @@ order; any failure exits non-zero:
    scripts in process, each kernel of their path launched (flash, decode
    and the exit head; flash and decode).
 
+23. the shared pad prefix (after phase 22; it opens a profiler session for
+   the engine's counters): one batch of llama3.2-1b at full width, prompts
+   of PAD_PREFIX_LENGTHS, prefilled with the rows' pad prefix computed once
+   (``Model.prefill``'s ``lengths``) and as left-padded rows.  In float32
+   (TF32 off) the last hidden states and every row's cache over [0, S) in
+   every segment within HIDDEN_TOL, and ``ServingEngine.serve``'s tokens
+   equal unless the padded path's top-2 margin is below MARGIN_TOL.  In
+   bfloat16 every flash launch of the shared path held against its plain
+   version on its inputs (ATTN_ATOL + ATTN_RTOL, the B + 1 calls of a layer
+   at T > S), the last hidden
+   states no further from the float32 padded prefill than twice the
+   padded bfloat16 prefill's distance, B + 1 flash launches a layer against
+   the padded path's one, and ``engine.pad_prefix.batches`` counted.
+
 The line before the last is the JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside the
 repository, it exits non-zero and prints no result.
@@ -4501,6 +4515,187 @@ def examples_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------- phase 23
+# the shared pad prefix: a batch of unequal prompts, the longest unpadded and
+# the shortest padded most
+PAD_PREFIX_LENGTHS = (1000, 700, 333, 64)
+
+
+def pad_prefix_inputs(torch, cfg, dev):
+    """The batch of PAD_PREFIX_LENGTHS as ``ServingEngine`` left-pads it (token
+    0), on the card, and its requests."""
+    from repro_torch.serving import Request
+    reqs = make_requests(Request, cfg.vocab_size,
+                         [(n, SHORT_SLO) for n in PAD_PREFIX_LENGTHS])
+    S = max(PAD_PREFIX_LENGTHS)
+    toks = np.zeros((len(reqs), S), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, S - len(r.prompt):] = r.prompt
+    return torch.from_numpy(toks).to(dev), reqs
+
+
+def pad_prefix_prefills(torch, model, params, toks, dtype):
+    """(h, cache) of the padded prefill and of the shared-prefix prefill."""
+    dev = toks.device
+    out = []
+    for kw in ({}, {"lengths": list(PAD_PREFIX_LENGTHS)}):
+        cache = model.init_cache(toks.shape[0], toks.shape[1] + NEW_TOKENS + 1, dtype=dtype,
+                                 device=dev)
+        out.append(model.prefill(params, toks, cache, **kw))
+    return out
+
+
+def cache_err(torch, a, b, S):
+    """max |a - b| over every row's cache positions [0, S) in every segment."""
+    return max((x[:, :, :S].float() - y[:, :, :S].float()).abs().max().item()
+               for sa, sb in zip(a, b) for x, y in zip(sa.values(), sb.values()))
+
+
+def pad_prefix_serve(torch, model, params, reqs, dtype, shared, held=None):
+    """``ServingEngine.serve`` of ``reqs`` as one batch; ``shared`` False
+    refuses the shared pad prefix on the model instance.  Returns (the picks
+    by row: the prefill's, then each decode step's; flash launches; the
+    engine's counters; the top-2 logit margins of the picks by row)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import spans
+    from repro_torch.serving import ServingEngine
+    graph, planner, link = serving_setup(model.cfg)
+    engine = ServingEngine(model, params, graph, planner, link, batch_size=BATCH,
+                           dtype=dtype)
+    picks, margins = [], []
+    inner = engine.stepper.next_token
+
+    def next_token(p, h):
+        top2 = model.logits(p, h)[:, -1].float().topk(2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).tolist())
+        tok = inner(p, h)
+        picks.append(tok[:, 0].tolist())
+        return tok
+
+    engine.stepper.next_token = next_token
+    if not shared:
+        model.shares_pad_prefix = lambda *a, **k: False
+    spans.reset()
+    reset_launch_counts()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]), \
+                (held if held is not None else contextlib.nullcontext()):
+            stats = engine.serve(reqs)
+    finally:
+        if not shared:
+            del model.shares_pad_prefix
+    flash = launch_counts()["flash_attention"]
+    counts = {k: spans.REGISTRY.counter(k).value for k in
+              ("engine.pad_prefix.batches", "engine.pad_prefix.positions",
+               "engine.pad_prefix.positions_skipped")}
+    spans.reset()
+    require(all(stats.tokens[r.rid] == [p[i] for p in picks[1:]] for i, r in enumerate(reqs)),
+            "phase 23: the served tokens are not the exit head's picks")
+    return [list(x) for x in zip(*picks)], flash, counts, [list(x) for x in zip(*margins)]
+
+
+def held_flash(torch, worst):
+    """Context: every flash launch held against its plain version on its
+    inputs in float32 (``attn_share``); ``worst["flash"]`` gathers (launches,
+    the largest share of the allowed error, the largest error)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    flash = fa_ops.flash_attention
+
+    def held(q, k, v, *, causal=True):
+        o = flash(q, k, v, causal=causal)
+        plain = fa_ref.attention(q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                                 v.transpose(1, 2).float(), causal=causal).transpose(1, 2)
+        e, share = attn_share(o, plain, q.dtype)
+        n, s, m = worst.get("flash", (0, 0.0, 0.0))
+        worst["flash"] = (n + 1, max(s, share), max(m, e))
+        return o
+    return patched(fa_ops, "flash_attention", held)
+
+
+def pad_prefix_phase(torch, dev="cuda"):
+    """Phase 23 (module doc).  ``dev`` "cpu" rehearses it (no launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(LLAMA)
+    model = Model(cfg)
+    B, S, n_layers = len(PAD_PREFIX_LENGTHS), max(PAD_PREFIX_LENGTHS), cfg.num_layers
+    toks, reqs = pad_prefix_inputs(torch, cfg, dev)
+    t0 = time.perf_counter()
+    # float32, TF32 off: end to end within the two-path tolerances
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params32 = model.init_params(gen, dtype=torch.float32, device=dev)
+    (h_pad, c_pad), (h_sh, c_sh) = pad_prefix_prefills(torch, model, params32, toks,
+                                                       torch.float32)
+    eh, ec = (h_sh - h_pad).abs().max().item(), cache_err(torch, c_sh, c_pad, S)
+    log(f"phase 23 {LLAMA} f32 lengths {PAD_PREFIX_LENGTHS}: shared pad prefix against "
+        f"padded prefill, last hidden max_abs_err {eh:.3g}, cache [0, {S}) max_abs_err "
+        f"{ec:.3g} (tol {HIDDEN_TOL})")
+    require(eh <= HIDDEN_TOL and ec <= HIDDEN_TOL,
+            f"phase 23: the shared pad prefix's prefill differs from the padded one by "
+            f"{eh} (hidden), {ec} (cache)")
+    t_pad, _, _, m_pad = pad_prefix_serve(torch, model, params32, reqs, torch.float32, False)
+    t_sh, _, counts, _ = pad_prefix_serve(torch, model, params32, reqs, torch.float32, True)
+    # each row's first pick that differs, with the padded path's margin there
+    flips = {}
+    for row, (a, b) in enumerate(zip(t_sh, t_pad)):
+        k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is not None:
+            flips[row] = (k, m_pad[row][k])
+    log(f"phase 23 {LLAMA} f32 serve: first flip by row (pick, padded top-2 margin) "
+        f"{flips}; counters {counts}")
+    require(all(m < MARGIN_TOL for _, m in flips.values()),
+            "phase 23: a token differs where the padded path's margin is above tolerance")
+    h32 = h_pad.float()
+    del params32, c_pad, c_sh, h_pad, h_sh
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    # bfloat16: each launch on its inputs, and no further from float32 than
+    # twice the padded path
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.bfloat16, device=dev)
+    (h_pad, c_pad), (h_sh, c_sh) = pad_prefix_prefills(torch, model, params, toks,
+                                                       torch.bfloat16)
+    e_pad = (h_pad.float() - h32).abs().max().item()
+    e_sh = (h_sh.float() - h32).abs().max().item()
+    log(f"phase 23 {LLAMA} bf16: last hidden max_abs_err against the f32 padded prefill: "
+        f"padded {e_pad:.3g}, shared pad prefix {e_sh:.3g}; shared against padded "
+        f"{(h_sh.float() - h_pad.float()).abs().max().item():.3g}, cache [0, {S}) "
+        f"{cache_err(torch, c_sh, c_pad, S):.3g}")
+    require(e_sh <= 2 * e_pad, f"phase 23: the bf16 shared pad prefix is {e_sh} from the "
+            f"f32 prefill, the padded bf16 prefill {e_pad}")
+    del c_pad, c_sh
+    worst = {}
+    t_pad, f_pad, _, _ = pad_prefix_serve(torch, model, params, reqs, torch.bfloat16, False)
+    t_sh, f_sh, counts, _ = pad_prefix_serve(torch, model, params, reqs, torch.bfloat16,
+                                             True, held_flash(torch, worst))
+    n_flash, share, err = worst.get("flash", (0, 0.0, 0.0))
+    diff = sum(x != y for a, b in zip(t_sh, t_pad) for x, y in zip(a, b))
+    n_picks = sum(len(a) for a in t_sh)
+    log(f"phase 23 {LLAMA} bf16 serve: flash launches shared {f_sh}, padded {f_pad} "
+        f"({n_layers} layers, B {B}); {n_flash} flash launches held, worst err/allowed "
+        f"{share:.3g}, max_abs_err {err:.3g}; "
+        f"{diff} of {n_picks} picks differ from the padded path's; counters "
+        f"{counts}; {time.perf_counter() - t0:.1f} s")
+    require(dev != "cuda" or (f_pad == n_layers and f_sh == (B + 1) * n_layers),
+            f"phase 23: {f_sh} flash launches on the shared path, {f_pad} padded; "
+            f"want {(B + 1) * n_layers} and {n_layers}")
+    require(n_flash == (B + 1) * n_layers and share <= 1.0,
+            f"phase 23: a shared-path flash launch disagrees with its plain version: "
+            f"{share} of the allowed error")
+    P = S - min(PAD_PREFIX_LENGTHS)
+    require(counts == {"engine.pad_prefix.batches": 1, "engine.pad_prefix.positions": P,
+                       "engine.pad_prefix.positions_skipped":
+                           B * S - P - sum(PAD_PREFIX_LENGTHS)},
+            f"phase 23: the engine counted {counts}")
+    del params
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"flash_attention": f_sh + f_pad}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -4681,6 +4876,12 @@ def main() -> int:
         f"{time.perf_counter() - t22:.1f} s; the --full recipe's steps by family "
         f"{json.dumps(trained)}")
 
+    # -- 23 the shared pad prefix; its engine counters take a profiler session
+    t23 = time.perf_counter()
+    for name, n in pad_prefix_phase(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"chip_smoke: phase 23 took {time.perf_counter() - t23:.1f} s")
+
     arena_profile(torch, (LLAMA, ZAMBA))
     t_prof = time.perf_counter()
     lm_train_profile(torch, lm_walls)
@@ -4718,7 +4919,7 @@ def main() -> int:
                         **({"at_configs": at_configs[name]} if at_configs.get(name)
                            else {}),
                         **({"at_sim": at_sim[name]} if at_sim.get(name) else {})})
-    log(f"chip_smoke: phases 1-22 took {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-23 took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

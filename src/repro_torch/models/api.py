@@ -180,9 +180,24 @@ class Model:
             return transformer.cache_specs(self.cfg, batch_axes, seq_axes, quant=True)
         return self.stack.cache_specs(self.cfg, batch_axes, seq_axes)
 
+    def shares_pad_prefix(self, params, cache, prefix_emb=None) -> bool:
+        """Whether :meth:`prefill` of these parameters into ``cache`` takes
+        ``lengths`` and computes the rows' shared left-pad prefix once: the
+        dense stack without experts, no VLM prefix, a cache in the
+        parameters' dtype, no DTensors
+        (:func:`repro_torch.models.transformer.shares_pad_prefix`)."""
+        return self.stack is transformer and transformer.shares_pad_prefix(
+            self.cfg, params, cache, prefix_emb)
+
     def prefill(self, params, tokens, cache, *, frames=None, prefix_emb=None,
-                impl="kernel", moe_dispatch="einsum"):
+                impl="kernel", moe_dispatch="einsum", lengths=None):
+        """``lengths`` (host ints, where :meth:`shares_pad_prefix`): each
+        left-padded row's prompt length; the rows' pad prefix is computed
+        once (:func:`repro_torch.models.transformer.prefill`)."""
         cfg = self.cfg
+        if lengths is not None and self.stack is not transformer:
+            raise ValueError(f"{cfg.name}: only the transformer stack's prefill "
+                             "takes lengths")
         with spans.span("model.prefill", {"B": tokens.shape[0], "S": tokens.shape[1]}) \
                 if spans.on() else spans.OFF:
             if self.stack is encdec:
@@ -190,7 +205,7 @@ class Model:
             if self.stack is ssm_stack:
                 return ssm_stack.prefill(cfg, params, tokens, cache, impl=impl)
             return transformer.prefill(cfg, params, tokens, cache, prefix_emb, impl=impl,
-                                       moe_dispatch=moe_dispatch)
+                                       moe_dispatch=moe_dispatch, lengths=lengths)
 
     def decode_step(self, params, cache, tokens, pos, *, exit_point=None,
                     with_exit_confidence=False, impl="kernel", mask=None,

@@ -25,7 +25,10 @@ redistributions (:mod:`repro_torch.spmd`).
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor.experimental import local_map
@@ -155,6 +158,81 @@ def decode_lengths(cache_pos, B: int, device):
     if isinstance(cache_pos, int):
         return torch.full((B,), cache_pos + 1, dtype=torch.int32, device=device)
     return (cache_pos + 1).to(device=device, dtype=torch.int32)
+
+
+@dataclass(frozen=True)
+class PadPrefix:
+    """A left-padded batch [B, S] packed so that its prefill computes the
+    rows' shared pad prefix once: the first ``prefix`` = S - min(lengths)
+    positions of the row padded most, then each row's own L_i positions,
+    N = ``prefix`` + sum(lengths) in all.  Attention is causal, so the
+    first S - L_i positions of row i are the prefix's first S - L_i.
+
+    ``rows``: (offset in the packed sequence, L_i) of each row; ``take``
+    [N]: the index into the flattened [B * S] tokens of each packed
+    position; ``positions`` [1, N]: its position in its row; ``src`` [B,
+    S]: the packed position whose K/V fills each cache position of each
+    row; ``last`` [B]: each row's last packed position."""
+    prefix: int
+    seq: int
+    rows: Tuple[Tuple[int, int], ...]
+    take: torch.Tensor
+    positions: torch.Tensor
+    src: torch.Tensor
+    last: torch.Tensor
+
+
+def pad_prefix(lengths: Sequence[int], S: int, device) -> PadPrefix:
+    """The :class:`PadPrefix` of rows of ``lengths`` (host ints, each in [1,
+    S]) left-padded to S, its index tensors made on the host and moved to
+    ``device`` in one copy."""
+    lens = [int(n) for n in lengths]
+    if not lens or not all(1 <= n <= S for n in lens):
+        raise ValueError(f"prompt lengths {lens} must lie in [1, {S}]")
+    B, P = len(lens), S - min(lens)
+    pads = [S - n for n in lens]
+    offs = (P + np.cumsum([0] + lens[:-1])).tolist()
+    most = int(np.argmax(pads))
+    t = np.arange(S)
+    take = np.concatenate([most * S + t[:P]] + [i * S + t[p:] for i, p in enumerate(pads)])
+    positions = np.concatenate([t[:P]] + [t[p:] for p in pads])
+    src = np.stack([np.where(t < p, t, o + t - p) for p, o in zip(pads, offs)])
+    last = np.array([o + n - 1 for o, n in zip(offs, lens)])
+    N = P + sum(lens)
+    flat = torch.from_numpy(np.concatenate([take, positions, src.reshape(-1), last])
+                            .astype(np.int64)).to(device)
+    return PadPrefix(P, S, tuple(zip(offs, lens)), flat[:N], flat[N:2 * N][None],
+                     flat[2 * N:2 * N + B * S].view(B, S), flat[2 * N + B * S:])
+
+
+def _causal(q, k, v, impl):
+    """Causal attention of q [1, Sq, H, hd] over k/v [1, T, KV, hd], the
+    diagonal aligned bottom right: the flash kernel for ``impl="kernel"``,
+    the dense ``_sdpa`` otherwise."""
+    if impl == "kernel":
+        with spans.span("kernel.flash_attention") if spans.on() else spans.OFF:
+            return fa_ops.flash_attention(q, k, v, causal=True)
+    Sq, T = q.shape[1], k.shape[1]
+    return _sdpa(q, k, v, causal_bias(Sq, T, T - Sq, q.device))
+
+
+def _attend_pad_prefix(q, k, v, kv_cache, pack: PadPrefix, impl):
+    """The packed prefill's attention (:class:`PadPrefix`): q [1, N, H, hd]
+    and k/v [1, N, KV, hd] packed, ``kv_cache`` (k, v) [B, T, KV, hd] in
+    q's dtype.  Every row's cache positions [0, S) are written first (its
+    pads from the prefix, then its own keys and values); then the prefix
+    attends causally to itself, and row i's L_i queries to its cache row's
+    S keys: query j of the row sits at position S - L_i + j and sees every
+    pad key and its own past.  B + 1 attention calls; returns [1, N, H,
+    hd]."""
+    ck, cv = kv_cache
+    S, P = pack.seq, pack.prefix
+    ck[:, :S] = k[0, pack.src]
+    cv[:, :S] = v[0, pack.src]
+    out = [_causal(q[:, :P], k[:, :P], v[:, :P], impl)]
+    for i, (off, n) in enumerate(pack.rows):
+        out.append(_causal(q[:, off:off + n], ck[i:i + 1, :S], cv[i:i + 1, :S], impl))
+    return torch.cat(out, dim=1)
 
 
 def _write_cache(buf, val, cache_pos, mask=None):
@@ -408,7 +486,7 @@ def dequantize_int8(q, scale, dtype):
 
 def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
               kv_cache=None, cache_pos=None, lengths=None, cross_kv=None,
-              impl="kernel", prefill_mode=False, write_mask=None):
+              impl="kernel", prefill_mode=False, write_mask=None, pack=None):
     """Full/cached attention.
 
     - training: ``kv_cache is None`` -> self attention over x.
@@ -425,6 +503,10 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
       (:func:`quantize_int8`) and written, a prefill attends on the
       unquantized block, and a decode dequantizes the whole cache to q's
       dtype and attends on that.
+    - packed prefill: ``pack`` a :class:`PadPrefix` and x its packed
+      positions [1, N, D] (``positions`` ``pack.positions``), ``kv_cache``
+      (k, v) in x's dtype: fills every row's cache positions [0, S) and
+      attends as the left-padded prefill would (:func:`_attend_pad_prefix`).
     - cross attention: ``cross_kv=(k,v)`` [B,T,KV,hd], the encoder memory's
       precomputed keys and values: q is not roped and nothing is masked.
       With ``impl="kernel"`` one query token (a decode step) goes to the
@@ -468,6 +550,9 @@ def attention(p, cfg: ModelConfig, x, positions, *, causal=True,
         v = spmd.split_dim(xn @ p["wv"], -1, kv_h).reshape(B, S, kv_h, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if pack is not None:
+        out = _mask_pad_heads(_attend_pad_prefix(q, k, v, kv_cache, pack, impl), h)
+        return out.reshape(B, S, h * hd) @ p["wo"], kv_cache
     if kv_cache is not None:
         if isinstance(kv_cache, dict):
             k8, ks = quantize_int8(k)

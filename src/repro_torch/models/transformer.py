@@ -20,6 +20,11 @@ The KV cache keeps the reference's per-segment layout, a tuple of dicts of
 ``attn0_*``/``attn1_*``), and is written in place; the int8 cache
 (``init_cache(quant=True)``) adds ``*_k_scale``/``*_v_scale`` bf16 leaves
 ``[n_units, B, T, KV]``.
+
+A prefill of left-padded rows of unequal prompts may compute the rows'
+shared pad prefix once (:func:`prefill`'s ``lengths``, where
+:func:`shares_pad_prefix`): one packed sequence of the prefix and each row's
+prompt, whose attention reads every row's pads back from its cache row.
 """
 from __future__ import annotations
 
@@ -194,9 +199,10 @@ def _seq_shard(x):
 
 
 def _unit_fwd(cfg, lp, x, positions, *, impl, kv, cache_pos, lengths,
-              prefill_mode, write_mask, moe_dispatch, seq_parallel=False):
+              prefill_mode, write_mask, moe_dispatch, seq_parallel=False, pack=None):
     """One unit.  ``kv``: this unit's cache leaves by name (``attn_k``, ...)
-    or None.  Returns (x, aux)."""
+    or None; ``pack``: a packed prefill's :class:`~repro_torch.models.layers.PadPrefix`.
+    Returns (x, aux)."""
     aux = 0.0
     x0 = x
     maybe_shard = _seq_shard if seq_parallel else (lambda x: spmd.pin(x, x0))
@@ -210,7 +216,7 @@ def _unit_fwd(cfg, lp, x, positions, *, impl, kv, cache_pos, lengths,
                 c = (kv[name + "_k"], kv[name + "_v"])
         out, _ = L.attention(lp[name], cfg, x, positions, kv_cache=c,
                              cache_pos=cache_pos, lengths=lengths, impl=impl,
-                             prefill_mode=prefill_mode, write_mask=write_mask)
+                             prefill_mode=prefill_mode, write_mask=write_mask, pack=pack)
         return x + out
 
     if cfg.num_experts and unit_size(cfg) == 2:
@@ -232,7 +238,7 @@ def _unit_fwd(cfg, lp, x, positions, *, impl, kv, cache_pos, lengths,
 def _run_segment(cfg, seg_params, x, positions, *, impl="kernel",
                  seg_cache=None, cache_pos=None, lengths=None,
                  prefill_mode=False, write_mask=None, remat=False,
-                 moe_dispatch="einsum", seq_parallel=False):
+                 moe_dispatch="einsum", seq_parallel=False, pack=None):
     """Run a segment's stacked units in order.  Returns (x, aux_sum,
     seg_cache); the cache is written in place (only the rows of
     ``write_mask`` when given).  ``remat`` (no cache) checkpoints each
@@ -245,7 +251,8 @@ def _run_segment(cfg, seg_params, x, positions, *, impl="kernel",
             return _unit_fwd(cfg, lp, x, positions, impl=impl, kv=kv,
                              cache_pos=cache_pos, lengths=lengths,
                              prefill_mode=prefill_mode, write_mask=write_mask,
-                             moe_dispatch=moe_dispatch, seq_parallel=seq_parallel)
+                             moe_dispatch=moe_dispatch, seq_parallel=seq_parallel,
+                             pack=pack)
 
         x, a = checkpoint(unit, x, use_reentrant=False) if remat else unit(x)
         aux = aux + a
@@ -335,10 +342,39 @@ def cache_specs(cfg: ModelConfig, batch_axes, seq_axes="model", quant: bool = Fa
     return tuple(out)
 
 
+def shares_pad_prefix(cfg: ModelConfig, params, cache, prefix_emb=None) -> bool:
+    """Whether :func:`prefill` may compute left-padded rows' shared pad
+    prefix once (its ``lengths``): only where that is the padded prefill's
+    own arithmetic.  Not with experts (an expert's capacity is counted over
+    the rows' tokens, so regrouping them changes what is dropped), nor with
+    a VLM's prefix (its rows do not start with their pads), nor with an
+    int8 cache (a padded prefill attends on the unquantized keys of its own
+    block, a packed row would read its pads back quantized) or a cache in
+    another dtype than the parameters', nor on DTensors (a mesh)."""
+    if cfg.num_experts or prefix_emb is not None:
+        return False
+    dt = params["embed"].dtype
+    leaves = [t for seg in cache for t in seg.values()]
+    return (not any(spmd.is_dtensor(t) for t in [params["embed"]] + leaves)
+            and not any(k.endswith("_scale") for seg in cache for k in seg)
+            and all(t.dtype == dt for t in leaves))
+
+
 def prefill(cfg: ModelConfig, params, tokens, cache, prefix_emb=None, *,
-            impl="kernel", moe_dispatch="einsum"):
+            impl="kernel", moe_dispatch="einsum", lengths=None):
     """Fills cache positions [0, P + S) (P prefix positions for a VLM given
-    ``prefix_emb``); returns (final_hidden_last_tok, cache)."""
+    ``prefix_emb``); returns (final_hidden_last_tok, cache).
+
+    ``lengths`` (host ints, one per row, where :func:`shares_pad_prefix`):
+    the rows' prompt lengths, each row of ``tokens`` [B, S] left-padded to S
+    with the same pad token in every row.  The rows' pad prefix is then
+    computed once and each row's prompt after it, N = S - min(lengths) +
+    sum(lengths) positions in one [1, N] sequence
+    (:class:`~repro_torch.models.layers.PadPrefix`) instead of B x S: the
+    same cache and hidden states up to the rounding of products at other
+    shapes."""
+    if lengths is not None and min(lengths) < tokens.shape[1]:
+        return _prefill_pad_prefix(cfg, params, tokens, cache, lengths, impl, prefix_emb)
     B = tokens.shape[0]
     x = _embed_inputs(cfg, params, tokens, prefix_emb)
     S = x.shape[1]
@@ -349,6 +385,26 @@ def prefill(cfg: ModelConfig, params, tokens, cache, prefix_emb=None, *,
                                    seg_cache=cache[si], cache_pos=0, prefill_mode=True,
                                    moe_dispatch=moe_dispatch)
     h = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
+    return h, cache
+
+
+def _prefill_pad_prefix(cfg, params, tokens, cache, lengths, impl, prefix_emb):
+    """:func:`prefill` with ``lengths``: one packed sequence through every
+    segment, attention by :func:`~repro_torch.models.layers._attend_pad_prefix`."""
+    if not shares_pad_prefix(cfg, params, cache, prefix_emb):
+        raise ValueError(f"{cfg.name}: this prefill cannot share the pad prefix "
+                         "(see shares_pad_prefix)")
+    B, S = tokens.shape
+    if len(lengths) != B:
+        raise ValueError(f"{len(lengths)} lengths for {B} rows")
+    pack = L.pad_prefix(lengths, S, tokens.device)
+    x = L.embed(params["embed"], tokens.reshape(-1)[pack.take][None])
+    segs = segment_lengths(cfg)
+    for si, segp in enumerate(params["segments"]):
+        with spans.segment(si, segs[si]) if spans.on() else spans.OFF:
+            x, _, _ = _run_segment(cfg, segp, x, pack.positions, impl=impl,
+                                   seg_cache=cache[si], prefill_mode=True, pack=pack)
+    h = L.rms_norm(x[0, pack.last][:, None], params["final_norm"], cfg.norm_eps)
     return h, cache
 
 

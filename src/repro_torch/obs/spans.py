@@ -68,7 +68,8 @@ OFF = contextlib.nullcontext()
 class span:
     """One unit of work, opened only while the gate is on (module doc).
     ``args``: the range's keyword values (ints, floats, strings);
-    ``counts``: counter name -> amount, added when the span closes."""
+    ``counts``: counter name -> amount, added when the span closes (read
+    then, so a call site may fill it inside the span)."""
     __slots__ = ("name", "counts", "rf", "t0", "t1")
 
     def __init__(self, name: str, args: Optional[Dict] = None,

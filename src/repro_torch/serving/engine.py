@@ -476,7 +476,8 @@ class CoInferenceStepper:
         return max(1, round(graph_exit * self.n_model / self.n_graph))
 
     def prefill_fn(self):
-        """The prefill callable ``(params, tokens, cache) -> (h, cache)``."""
+        """The prefill callable ``(params, tokens, cache, *, lengths=None)
+        -> (h, cache)`` (``lengths``: see :meth:`Model.prefill`)."""
         assert self.model is not None, "timing-only stepper has no prefill"
         return partial(self.model.prefill, impl=self.impl)
 
@@ -709,7 +710,8 @@ class ServingEngine:
     def _serve_batch(self, batch: List[Request], stats: ServeStats,
                      start_s: float = 0.0) -> float:
         lens = [len(r.prompt) for r in batch] if spans.on() else None
-        # the padding: the requests' prompt positions, and the B x S a prefill computes
+        # the padding: the requests' prompt positions, and the B x S of the
+        # left-padded batch the prefill is handed
         with spans.span("engine.batch", {"B": len(lens), "S": max(lens), "prompt": sum(lens)},
                         {"engine.prompt_positions": sum(lens),
                          "engine.positions_computed": len(lens) * max(lens)}) \
@@ -719,22 +721,34 @@ class ServingEngine:
     def _run_batch(self, batch: List[Request], stats: ServeStats,
                    start_s: float) -> float:
         B = len(batch)
-        prompt_len = max(len(r.prompt) for r in batch)
+        lens = [len(r.prompt) for r in batch]
+        prompt_len = max(lens)
         max_new = max(r.max_new_tokens for r in batch)
-        with spans.span("engine.setup") if spans.on() else spans.OFF:
+        counts: Dict[str, int] = {}             # added when engine.setup closes
+        with spans.span("engine.setup", counts=counts) if spans.on() else spans.OFF:
             toks = np.zeros((B, prompt_len), np.int32)
             for i, r in enumerate(batch):
                 toks[i, -len(r.prompt):] = r.prompt            # left-pad
             cache = self.model.init_cache(B, prompt_len + max_new + 1,
                                           dtype=self.dtype, device=self.device)
             toks = torch.from_numpy(toks).to(self.device)
+            # rows of unequal prompts: their pad prefix is prefilled once
+            shared = min(lens) < prompt_len and \
+                self.model.shares_pad_prefix(self.params, cache)
+            if shared:
+                pad = prompt_len - min(lens)
+                counts.update({"engine.pad_prefix.batches": 1,
+                               "engine.pad_prefix.positions": pad,
+                               "engine.pad_prefix.positions_skipped":
+                                   B * prompt_len - pad - sum(lens)})
         # ---- plan at batch start
         with spans.span("engine.plan") if spans.on() else spans.OFF:
             bw = self.link.current()
             plan = self.stepper.plan(bw)
         clock = start_s
         # prefill (virtual time: prefill ~ prompt_len * step cost; value: real)
-        h, cache = self.stepper.prefill_fn()(self.params, toks, cache)
+        h, cache = self.stepper.prefill_fn()(self.params, toks, cache,
+                                             **({"lengths": lens} if shared else {}))
         clock += self.stepper.step_time(plan.exit_point, plan.partition, bw) * \
             max(1, prompt_len // 8)
         next_tok = self.stepper.next_token(self.params, h)

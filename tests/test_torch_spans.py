@@ -102,9 +102,10 @@ def test_every_span_appears_nested_as_the_engine_works():
 
 def test_counters_reproduce_the_benchmarks_pad_and_depth_readers():
     """The quantities ``pad_share`` and ``decode_depth_share`` are made of:
-    the prompt positions and the ``B x S`` each prefill computes, and the
+    the prompt positions and the ``B x S`` each prefill is handed, and the
     segments each decode step ran of the model's (the benchmark's own test
-    holds its readers to these counters)."""
+    holds its readers to these counters); and the pad positions the shared
+    pad prefix computed once and those it did not compute."""
     eng, batches = build()
     stepper = eng.stepper
     exits = []
@@ -121,6 +122,12 @@ def test_counters_reproduce_the_benchmarks_pad_and_depth_readers():
     assert c("engine.prompt_positions").value == sum(len(r.prompt) for b in batches for r in b)
     assert c("engine.positions_computed").value == \
         sum(len(b) * max(len(r.prompt) for r in b) for b in batches)
+    lens = [[len(r.prompt) for r in b] for b in batches]
+    assert all(min(n) < max(n) for n in lens)
+    assert c("engine.pad_prefix.batches").value == BATCHES
+    assert c("engine.pad_prefix.positions").value == sum(max(n) - min(n) for n in lens)
+    assert c("engine.pad_prefix.positions_skipped").value == \
+        sum(len(n) * max(n) - (max(n) - min(n)) - sum(n) for n in lens)
     n_seg = eng.model.num_segments
     run = [min(stepper.to_model_exit(g), n_seg) for g in exits]
     assert len(set(run)) > 1
